@@ -1,0 +1,194 @@
+"""The port's limb arithmetic and the plain versions of its four kernels,
+against the JAX package (gkr_tpu.jaxeng) and host ints, on the CPU.
+
+Inputs come from numpy seeds and reach both packages as the same limbs
+(gkr_tpu_torch.convert).  Field arithmetic has no rounding: every check is
+exact equality of canonical limbs or integers."""
+
+import itertools
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gkr_tpu.field import P, R
+from gkr_tpu.jaxeng import limbs as JL
+from gkr_tpu.jaxeng import sumcheck as JS
+from gkr_tpu.mle import eq_table
+
+from gkr_tpu_torch.convert import limbs_from_numpy, limbs_to_numpy
+from gkr_tpu_torch.torcheng import kernels as K
+from gkr_tpu_torch.torcheng import limbs as L
+
+ROOT = Path(__file__).resolve().parent.parent
+EDGE = [0, 1, 2, P - 1, P - 2, P // 2, (P + 1) // 2, R % P, (1 << 253) - 1,
+        P - (1 << 16)]
+
+
+def rand_field(rng, n):
+    raw = rng.bytes(32 * n)
+    return [int.from_bytes(raw[32 * i:32 * i + 32], "little") % P
+            for i in range(n)]
+
+
+def both(values):
+    """The same Montgomery limbs as a JAX array and a port tensor."""
+    j = JL.pack(values)
+    return j, limbs_from_numpy(np.asarray(j))
+
+
+def same(t, j):
+    return np.array_equal(limbs_to_numpy(t), np.asarray(j))
+
+
+@pytest.mark.parametrize("n", [1, 37, 1 << 12])
+def test_pack_unpack_matches_jax(n):
+    """n = 2^12 takes the bytes -> device -> x R^2 path in both packages."""
+    vals = rand_field(np.random.default_rng(n), n)
+    vals[:len(EDGE)] = EDGE[:n]
+    j, _ = both(vals)
+    t = L.pack(vals)
+    assert t.dtype == torch.int32 and t.shape == (n, 16)
+    assert same(t, j)
+    assert L.unpack(t) == vals
+    assert L.unpack_scalar(L.pack_scalar(vals[-1])) == vals[-1]
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_elementwise_ops_match_jax_and_host(op):
+    rng = np.random.default_rng(1)
+    pairs = list(itertools.product(EDGE, EDGE))
+    xs = [a for a, _ in pairs] + rand_field(rng, 28)
+    ys = [b for _, b in pairs] + rand_field(rng, 28)
+    (jx, tx), (jy, ty) = both(xs), both(ys)
+    port = {"add": L.add_mod, "sub": L.sub_mod, "mul": K.mont_mul}[op]
+    jax_fn = {"add": JL.jadd, "sub": JL.jsub, "mul": JL.jmul}[op]
+    host = {"add": lambda a, b: (a + b) % P, "sub": lambda a, b: (a - b) % P,
+            "mul": lambda a, b: a * b % P}[op]
+    got = port(tx, ty)
+    assert same(got, jax_fn(jx, jy))
+    assert L.unpack(got) == [host(a, b) for a, b in zip(xs, ys)]
+
+
+def test_mont_mul_broadcast_rows():
+    """b rows serve runs of a's rows: one scalar, or one row per point."""
+    rng = np.random.default_rng(2)
+    xs = rand_field(rng, 12)
+    s = rand_field(rng, 3)
+    a = L.pack(xs)
+    assert L.unpack(L.mul_scalar(a, L.pack_scalar(s[0]))) == \
+        [x * s[0] % P for x in xs]
+    got = K.mont_mul(a.reshape(3, 4, 16), L.pack(s))
+    assert L.unpack(got) == [x * s[i // 4] % P for i, x in enumerate(xs)]
+    with pytest.raises(ValueError):
+        K.mont_mul(a, L.pack(s[:2] + s[:3]))          # 5 rows do not divide 12
+
+
+def test_normalize_relaxed_and_sum_mod():
+    rng = np.random.default_rng(3)
+    # relaxed sums of 1000 canonical rows: limbs < 2^26, value < 1000 p
+    parts = [rand_field(rng, 8) for _ in range(1000)]
+    stack = np.stack([np.asarray(JL.pack(p)) for p in parts])    # (1000, 8, 16)
+    relaxed = stack.sum(axis=0, dtype=np.uint32)
+    got = L.normalize_relaxed(torch.from_numpy(relaxed.astype(np.int64)))
+    assert same(got, JL.jnormalize(jnp.asarray(relaxed)))
+    for n in (1, 100, 5000):
+        vals = rand_field(rng, n)
+        t = L.pack(vals)
+        assert L.unpack_scalar(L.sum_mod(t)) == sum(vals) % P
+        if n <= 100:
+            assert same(L.sum_mod(t), JL.jsum(JL.pack(vals)))
+
+
+@pytest.mark.parametrize("tables", [4, 3])
+def test_fold_plain_matches_jfold(tables):
+    rng = np.random.default_rng(4 + tables)
+    n = 16
+    vals = rand_field(rng, n * tables)
+    vals[:len(EDGE)] = EDGE
+    js, ts = both(vals)
+    js, ts = js.reshape(n, tables, 16), ts.reshape(n, tables, 16)
+    for r in (rand_field(rng, 1)[0], 0, 1, P - 1):
+        jr, tr = both([r])
+        want = JL.jfold(js, jr[0])
+        assert same(K.fold(ts, tr[0]), want)
+        assert same(K.fold_plain(ts, tr[0]), want)
+    assert K.LAUNCHES["fold"] == 0
+
+
+def test_phase1_eval_plain_matches_jax():
+    rng = np.random.default_rng(6)
+    vals = rand_field(rng, 32 * 4)
+    vals[:len(EDGE)] = EDGE
+    js, ts = both(vals)
+    js, ts = js.reshape(32, 4, 16), ts.reshape(32, 4, 16)
+    want = JS._phase1_eval(js)
+    assert same(K.phase1_eval(ts), want)
+    assert same(K.phase1_eval_plain(ts), want)
+
+
+@pytest.mark.parametrize("wb", [None, 0, P - 1])
+def test_phase2_eval_plain_matches_jax(wb):
+    rng = np.random.default_rng(7)
+    vals = rand_field(rng, 32 * 3)
+    vals[-len(EDGE):] = EDGE
+    js, ts = both(vals)
+    js, ts = js.reshape(32, 3, 16), ts.reshape(32, 3, 16)
+    jw, tw = both([rand_field(rng, 1)[0] if wb is None else wb])
+    want = JS._phase2_eval(js, jw[0])
+    assert same(K.phase2_eval(ts, tw[0]), want)
+    assert same(K.phase2_eval_plain(ts, tw[0]), want)
+
+
+def test_eq_table_device_matches_jax_and_host():
+    z = rand_field(np.random.default_rng(8), 4)
+    jz, tz = both(z)
+    got = L.eq_table_device(tz)
+    assert same(got, JL.jeq_table(jz))
+    assert L.unpack(got) == eq_table(z)
+    assert L.unpack(L.eq_table_device(tz[:0])) == [1]
+
+
+def test_fr_cuh_constants():
+    """Every constant of the CUDA field header against field.P."""
+    src = (ROOT / "gkr_tpu_torch" / "csrc" / "fr.cuh").read_text()
+    body = re.search(r"FR_P\[8\]\s*=\s*\{([^}]*)\}", src).group(1)
+    words = [int(w, 16) for w in re.findall(r"0x([0-9a-fA-F]+)u", body)]
+    assert len(words) == 8
+    assert sum(w << (32 * i) for i, w in enumerate(words)) == P
+    nprime = int(re.search(r"#define FR_NPRIME32 0x([0-9a-fA-F]+)u", src).group(1), 16)
+    assert nprime == (-pow(P, -1, 1 << 32)) % (1 << 32)
+    assert (P * nprime + 1) % (1 << 32) == 0
+    decimal = re.search(r"// p = (\d+)", src).group(1)
+    assert int(decimal) == P
+    assert P.bit_length() == 254      # fr_add and fr_mul rely on p < 2^254
+
+
+def test_convert_roundtrip_and_checks():
+    a = np.asarray(JL.pack(rand_field(np.random.default_rng(9), 5)))
+    t = limbs_from_numpy(a)
+    assert t.dtype == torch.int32
+    assert np.array_equal(limbs_to_numpy(t), a)
+    with pytest.raises(ValueError):
+        limbs_from_numpy(np.full((2, 16), 1 << 16, dtype=np.uint32))
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    """CPU tensors run the plain versions: nothing launches, nothing builds;
+    wrong limb types are refused."""
+    K.reset_launches()
+    S = L.pack(rand_field(np.random.default_rng(10), 8 * 4)).reshape(8, 4, 16)
+    K.phase1_eval(S)
+    K.phase2_eval(S[:, :3].contiguous(), S[0, 0])
+    K.fold(S, S[0, 0])
+    K.mont_mul(S, S)
+    assert K.LAUNCHES == {"mont_mul": 0, "fold": 0, "phase1_eval": 0,
+                          "phase2_eval": 0}
+    assert K._lib is None
+    with pytest.raises(ValueError):
+        K.mont_mul(S.to(torch.int64), S.to(torch.int64))
+    with pytest.raises(ValueError):
+        K.phase1_eval(S[:, :3])
