@@ -7,14 +7,19 @@ Phases, each fatal on failure:
   1. card: name, power limit, SM clock, device count;
   2. build: the CUDA kernels from gkr_tpu_torch/csrc with nvcc (sm_90a);
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the per-round engine's shapes (n = 2^20), random and edge inputs,
-     bit-equal; kernel and plain version timed with CUDA events;
-  4. slice: prove(synth_circuit(20, 16)) with TorchBackend() on the card,
-     per-stage times, the port's verify, and the kernel launch counts of
-     that one prove; then device time by kernel over one more prove
-     (torch.profiler);
-  5. card against CPU: synth_circuit(12, 10) proved on both, identical;
-  6. one JSON line of every kernel with its launches, time and bound.
+     the shapes of the path that runs it (n = 2^20; the wiring plans of
+     synth_circuit(20, 16); a bucket of 70,000 gates), random and edge
+     inputs, bit-equal; kernel and plain version timed with CUDA events,
+     `index_add_` beside the segment sum;
+  4. per-round slice: prove(synth_circuit(20, 16)) with
+     TorchBackend(fused=False), per-stage times, the port's verify, and the
+     kernel launch counts of that one prove; then device time by kernel
+     over one more prove (torch.profiler);
+  5. fused slice: the same with TorchBackend(), the fused engine;
+  6. card against CPU: synth_circuit(12, 10) proved on both with each
+     engine, identical; a corrupted device challenge must make the fused
+     layer's host check raise;
+then one JSON line of every kernel with its launches, time and bound.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it.  Imports nothing of jax or gkr_tpu.
 """
@@ -36,7 +41,27 @@ ELEM_BYTES = 64                  # one field element: 16 int32 limbs
 N = 1 << 20                      # the main path's table size
 DEVICE = "cuda"
 
-EXPECTED_LAUNCHES = {"phase1_eval": 20, "phase2_eval": 20, "fold": 40}
+FUSED_ONLY = ("phase1_partials", "phase2_partials", "round_coeffs",
+              "mimc_multi", "seg_sum", "normalize", "normalize_mul")
+# Launches of one prove of synth_circuit(20, 16): three layer sumchecks with
+# k_next = 20, 20, 16 (40 + 40 + 32 rounds) on the card.  Both engines build
+# eq(z) over k_cur = 4, 20, 20 points and eq(b*) over 20, 20, 16, one
+# eq_table launch per doubling.
+EXPECTED_PER_ROUND = {"phase1_eval": 20, "phase2_eval": 20, "fold": 40,
+                      "eq_table": 100, **{name: 0 for name in FUSED_ONLY}}
+EXPECTED_FUSED = {
+    "round_coeffs": 112, "mimc_multi": 112, "fold": 112,
+    "phase1_partials": 56, "phase2_partials": 56,
+    # 2 plans (phase 1, phase 2) per gate kind: 2 + 2 for each wide layer,
+    # 1 + 1 for the output layer (add gates only)
+    "seg_sum": 10,
+    # HA1, HA2, HM, FA per wide layer; HA1, HA2, FA for the output layer
+    "normalize": 11,
+    "normalize_mul": 2,                 # FM * W~(b*), wide layers only
+    "eq_table": 100,
+    "phase1_eval": 0, "phase2_eval": 0,
+}
+LAUNCHES_FROM_PER_ROUND = ("phase1_eval", "phase2_eval")
 
 
 def smi(fields: str, fmt: str = "csv,noheader") -> str:
@@ -146,7 +171,8 @@ def phase_kernels(K, L, P, R, sm_clock_hz):
         t_ops = products * IMAD_PER_PRODUCT / imad_rate * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
-    def record(name, replaces, got, want, ms, plain_ms, nbytes, products):
+    def record(name, replaces, got, want, ms, plain_ms, nbytes, products,
+               library_ms=None):
         err = max_abs_err(got, want)
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -156,9 +182,11 @@ def phase_kernels(K, L, P, R, sm_clock_hz):
                      "source": "gkr_tpu_torch/csrc/kernels.cu",
                      "replaces": replaces, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-        print(f"  {name:12s} bit-equal  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library_ms})
+        lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+        print(f"  {name:15s} bit-equal  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by}){lib}", flush=True)
 
     # mont_mul at 2^20, every pair of edge values in the first rows
     a = with_edges(random_limbs(rng, (N,), dev), [x for x, _ in pairs], L)
@@ -226,31 +254,191 @@ def phase_kernels(K, L, P, R, sm_clock_hz):
           f"{event_ms(lambda: K.phase2_eval(S2, wb), 10):.4f} ms", flush=True)
     del S2
     torch.cuda.synchronize()
-    return rows
+    return rows, record, bound
 
 
-def phase_slice(K, L, prove, verify, TorchBackend, synth_circuit):
-    t0 = time.perf_counter()
-    circuit, inputs = synth_circuit(20, 16)
-    print(f"  host: generate synth_circuit(20, 16): {time.perf_counter() - t0:.3f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    w = circuit.evaluate(inputs)
-    print(f"  host: evaluate: {time.perf_counter() - t0:.3f} s", flush=True)
-    t0 = time.perf_counter()
-    for i in range(1, len(w)):
-        L.canonical_limbs(w[i])
-    print(f"  host: pack bytes join of the {len(w) - 1} device tables: "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+def relaxed_edges(P: int, lin: int) -> list[list[int]]:
+    """Relaxed limb columns at the contract's limits (lin limbs, each below
+    2^31, value below p * 2^256): the low limbs near 2^31 under values up to
+    p * 2^256 - 1, and, with 18 limbs, every limb at 2^31 - 1."""
+    top = (P << 256) - 1
+    values = [top, top - (1 << 255), (P - 1) << 256, P << 200,
+              (1 << 288) - 1, P, 1, 0]
+    near = [(1 << 31) - (1 << 16) - 1] * (lin - 2) + [0, 0]
+    base = sum(b << (16 * i) for i, b in enumerate(near))
+    cols = []
+    for v in values:
+        low, rest = (near, v - base) if v >= base else ([0] * lin, v)
+        col = [b + ((rest >> (16 * i)) & 0xFFFF) for i, b in enumerate(low)]
+        if sum(c << (16 * i) for i, c in enumerate(col)) == v:
+            cols.append(col)            # v fits lin limbs
+    if lin <= 18:
+        cols.append([(1 << 31) - 1] * lin)
+    return cols
 
-    backend = timed_backend(TorchBackend)()
+
+def phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit):
+    """The fused engine's kernels against their plain versions, at the
+    shapes synth_circuit(20, 16) gives them."""
+    rng = np.random.default_rng(2025)
+    dev = DEVICE
+    edges = edge_values(P, R)
+
+    # eq_table at k = 20, random and edge points
+    z = random_limbs(rng, (20,), dev)
+    zedge = with_edges(random_limbs(rng, (20,), dev), edges, L)
+    for pt in (zedge, z):
+        got, want = K.eq_table(pt), K.eq_table_plain(pt)
+        if not torch.equal(got, want):
+            raise AssertionError("eq_table: disagrees with its plain version")
+    if L.unpack(K.eq_table(z[:3])) != L.unpack(K.eq_table_plain(z[:3])):
+        raise AssertionError("eq_table: k = 3 table differs")
+    record("eq_table", "gkr_tpu/jaxeng/pallas_kernels.py:214", got, want,
+           event_ms(lambda: K.eq_table(z), 20),
+           event_ms(lambda: K.eq_table_plain(z), 2, 1),
+           (20 + N) * ELEM_BYTES, 2 * N - 2)
+    del got, want
+
+    # seg_sum on the 2^20 layer's plans and on a hot bucket of 70,000 gates
+    layer = circuit.layers[1]
+    wiring = F.build_wiring(layer.add_gates, layer.mult_gates, N, dev)
+    G_hot = 1 << 17
+    keys = np.sort(rng.integers(0, N, size=G_hot))
+    keys[:70000] = 12345
+    keys.sort()
+    hot_hib = torch.from_numpy(np.searchsorted(keys, np.arange(N), side="right")
+                               .astype(np.int32)).to(dev)
+    p_limbs = torch.from_numpy(L.canonical_limbs([P - 1])).to(dev)
+    first = None
+    for label, hib, T in (("2^20 layer's phase-1 add plan, T = 2", wiring.a1.hib, 2),
+                          ("2^20 layer's phase-1 mult plan, T = 1", wiring.m1.hib, 1),
+                          ("hot bucket of 70,000 gates, T = 2", hot_hib, 2)):
+        G = int(hib[-1])
+        ws = [random_limbs(rng, (G,), dev) for _ in range(T)]
+        for w in ws:
+            w[::2] = p_limbs                      # largest limbs: carries
+        got, want = K.seg_sum(ws, hib), K.seg_sum_plain(ws, hib)
+        if not torch.equal(got, want):
+            raise AssertionError(f"seg_sum ({label}): disagrees with its plain "
+                                 f"version (max abs limb error {max_abs_err(got, want)})")
+        counts = torch.diff(hib.to(torch.int64),
+                            prepend=torch.zeros(1, dtype=torch.int64, device=dev))
+        bucket = torch.repeat_interleave(torch.arange(N, device=dev), counts)
+        w64 = [w.to(torch.int64) for w in ws]
+        ms = event_ms(lambda: K.seg_sum(ws, hib), 20)
+        plain_ms = event_ms(lambda: K.seg_sum_plain(ws, hib), 2, 1)
+        lib_ms = event_ms(lambda: [torch.zeros((N, 16), dtype=torch.int64, device=dev)
+                                   .index_add_(0, bucket, x) for x in w64], 10)
+        nbytes = T * G * ELEM_BYTES + N * 4 + T * K.SEG_LIMBS * N * 4
+        b_ms, b_by = bound(nbytes, 0)
+        print(f"  seg_sum, {label}: max bucket {int(counts.max())} gates: bit-equal  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  index_add_ {lib_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if first is None:
+            first = (got, want, ms, plain_ms, nbytes, lib_ms)
+    got, want, ms, plain_ms, nbytes, lib_ms = first
+    record("seg_sum", "gkr_tpu/jaxeng/pallas_kernels.py:618", got, want, ms,
+           plain_ms, nbytes, 0, library_ms=lib_ms)
+    del got, want, first, ws, w64, bucket
+
+    # normalize and normalize_mul at 2^20: the fused path's 18 limbs and the
+    # contract's 32, limbs near 2^31 - 1, values near p * 2^256
+    s_int = rand_field(rng, P)
+    s = L.pack_scalar(s_int, dev)
+    for lin in (32, 18):
+        t = torch.from_numpy(rng.integers((1 << 31) - (1 << 20), 1 << 31,
+                                          size=(lin, N)).astype(np.int32)).to(dev)
+        if lin == 32:
+            t[30:] = 0
+        cols = relaxed_edges(P, lin)
+        t[:, :len(cols)] = torch.tensor(cols, dtype=torch.int32, device=dev).T
+        vals = [sum(c << (16 * i) for i, c in enumerate(col)) for col in cols]
+        for scalar in (None, s):
+            got, want = K.normalize(t, scalar), K.normalize_plain(t, scalar)
+            if not torch.equal(got, want):
+                raise AssertionError(f"normalize lin={lin} scalar={scalar is not None}: "
+                                     f"disagrees with its plain version")
+            host = L.unpack(got[:len(cols)], montgomery=False)
+            mult = 1 if scalar is None else s_int
+            if host != [v * mult % P for v in vals]:
+                raise AssertionError(f"normalize lin={lin}: edge values differ "
+                                     f"from host ints")
+    record("normalize", "gkr_tpu/jaxeng/pallas_kernels.py:521",
+           K.normalize(t), K.normalize_plain(t),
+           event_ms(lambda: K.normalize(t), 30),
+           event_ms(lambda: K.normalize_plain(t), 2, 1),
+           18 * N * 4 + N * ELEM_BYTES, 1.5 * N)
+    record("normalize_mul", "gkr_tpu/jaxeng/pallas_kernels.py:554", got, want,
+           event_ms(lambda: K.normalize(t, s), 30),
+           event_ms(lambda: K.normalize_plain(t, s), 2, 1),
+           18 * N * 4 + N * ELEM_BYTES + ELEM_BYTES, 2.5 * N)
+    del t, got, want
+
+    # round_coeffs at G = 1024 (2^20 tables) and G = 1 (the last rounds)
+    tiny = torch.zeros(16, dtype=torch.int32, device=dev)
+    launch_ms = event_ms(lambda: tiny.add_(0), 200)
+    for G in (1, 1024):
+        part = with_edges(random_limbs(rng, (G, 3), dev), edges[:3 * G], L)
+        got, want = K.round_coeffs(part), K.round_coeffs_plain(part)
+        if not torch.equal(got, want):
+            raise AssertionError(f"round_coeffs G={G}: disagrees with its plain version")
+    record("round_coeffs", "gkr_tpu/jaxeng/pallas_kernels.py:479", got, want,
+           event_ms(lambda: K.round_coeffs(part), 200),
+           event_ms(lambda: K.round_coeffs_plain(part), 3, 1),
+           (G * 3 + 3) * ELEM_BYTES, 0)
+    print(f"    round_coeffs beside one tiny plain-torch launch back to back: "
+          f"{launch_ms:.4f} ms", flush=True)
+
+    # mimc_multi at lengths 2 and 3 against the plain version and the host
+    host = Mimc7()
+    for vals in ([0, 1], [P - 1, P - 1], [0, 1, P - 1], [P - 1, 0, 1],
+                 [rand_field(rng, P) for _ in range(2)],
+                 [rand_field(rng, P) for _ in range(3)]):
+        x = L.pack(vals, dev)
+        got, want = K.mimc_multi(x), K.mimc_multi_plain(x)
+        if not torch.equal(got, want) or L.unpack_scalar(got) != host.multi_hash(vals, 0):
+            raise AssertionError(f"mimc_multi: differs from the host Mimc7 on {vals}")
+    ms = event_ms(lambda: K.mimc_multi(x), 50)
+    record("mimc_multi", "gkr_tpu/jaxeng/pallas_kernels.py:813", got, want, ms,
+           event_ms(lambda: K.mimc_multi_plain(x), 5, 1),
+           (3 + K.MIMC_ROUNDS + 1) * ELEM_BYTES, 3 * 4 * K.MIMC_ROUNDS)
+    print(f"    mimc_multi, 3 elements: {3 * 4 * K.MIMC_ROUNDS} dependent products, "
+          f"{ms / (3 * 4 * K.MIMC_ROUNDS) * 1e6:.1f} ns each", flush=True)
+
+    # the partials entry points of the eval kernels, at n = 2^20 and n = 2
+    for n in (2, N):
+        S1 = with_edges(random_limbs(rng, (n, 4), dev), (edges * 4)[:4 * n], L)
+        got, want = K.phase1_partials(S1), K.phase1_partials_plain(S1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase1_partials n={n}: disagrees")
+    record("phase1_partials", "gkr_tpu/jaxeng/pallas_kernels.py:406", got, want,
+           event_ms(lambda: K.phase1_partials(S1), 30),
+           event_ms(lambda: K.phase1_partials_plain(S1), 2, 1),
+           N * 4 * ELEM_BYTES, 3 * (N // 2))
+    del S1
+    for n in (2, N):
+        S2 = with_edges(random_limbs(rng, (n, 3), dev), (edges * 3)[:3 * n], L)
+        got, want = K.phase2_partials(S2, s), K.phase2_partials_plain(S2, s)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase2_partials n={n}: disagrees")
+    record("phase2_partials", "gkr_tpu/jaxeng/pallas_kernels.py:428", got, want,
+           event_ms(lambda: K.phase2_partials(S2, s), 30),
+           event_ms(lambda: K.phase2_partials_plain(S2, s), 2, 1),
+           N * 3 * ELEM_BYTES + ELEM_BYTES, 6 * (N // 2))
+    del S2
+    torch.cuda.synchronize()
+
+
+def phase_slice(K, prove, verify, backend, circuit, w, expected):
+    """One prove with the launch counters reset just before and read just
+    after; the port's verify; the counts against `expected`."""
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     proof, dt = sync_time(lambda: prove(circuit, w, backend=backend))
     launches = dict(K.LAUNCHES)
     print(f"  prove (device stages, host clock with sync): {dt:.3f} s", flush=True)
-    for name, s in backend.seconds.items():
-        print(f"    {name}: {s:.3f} s", flush=True)
+    for name, sec in backend.seconds.items():
+        print(f"    {name}: {sec:.3f} s", flush=True)
     print(f"  launches in this prove: {launches}", flush=True)
     print(f"  torch.cuda.max_memory_allocated: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
@@ -260,21 +448,22 @@ def phase_slice(K, L, prove, verify, TorchBackend, synth_circuit):
           f"{time.perf_counter() - t0:.3f} s -> {ok}", flush=True)
     if not ok:
         raise AssertionError("the port's verifier rejected the 2^20 proof")
-    for name, want in EXPECTED_LAUNCHES.items():
+    for name, want in expected.items():
         if launches[name] != want:
             raise AssertionError(f"{name}: {launches[name]} launches, expected {want}")
     if launches["mont_mul"] <= 0:
         raise AssertionError("mont_mul was not launched on the main path")
-    return launches, circuit, w, dt
+    return launches, proof, dt
 
 
-def phase_profile(prove, TorchBackend, circuit, w, wall_s):
+def phase_profile(prove, make_backend, circuit, w, wall_s):
     """Device time by kernel over one more prove, under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
+    spans = ("sumcheck.", "fused.")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, prof_wall = sync_time(lambda: prove(circuit, w, backend=TorchBackend()))
+        _, prof_wall = sync_time(lambda: prove(circuit, w, backend=make_backend()))
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -283,10 +472,10 @@ def phase_profile(prove, TorchBackend, circuit, w, wall_s):
     from torch.autograd import DeviceType
 
     # device-side events only: kernels and copies, not the CPU ops that
-    # launched them nor the GPU ranges of the sumcheck.* spans
+    # launched them nor the GPU ranges of the layer engines' spans
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == DeviceType.CUDA
-              and dev_us(e) > 0 and not e.key.startswith("sumcheck.")]
+              and dev_us(e) > 0 and not e.key.startswith(spans)]
     total_s = sum(dev_us(e) for e in events) / 1e6
     if total_s == 0:
         print("  profiler: no device time recorded (busy share not measured)",
@@ -301,27 +490,51 @@ def phase_profile(prove, TorchBackend, circuit, w, wall_s):
     print("  layer sumcheck stages (host clock, all layers, profiler on):",
           flush=True)
     for e in prof.key_averages():
-        if (e.key.startswith("sumcheck.")
+        if (e.key.startswith(spans)
                 and getattr(e, "device_type", None) == DeviceType.CPU):
             print(f"    {e.cpu_time_total / 1e3:9.3f} ms  {e.count:3d} x  {e.key}",
                   flush=True)
 
 
-def phase_card_vs_cpu(prove, verify, TorchBackend, synth_circuit):
+def phase_card_vs_cpu(F, prove, verify, TorchBackend, synth_circuit, mle_struct,
+                      prove_layer_sumcheck, Mimc7, P):
     circuit, inputs = synth_circuit(12, 10)
     w = circuit.evaluate(inputs)
-    p_gpu, dt_gpu = sync_time(lambda: prove(
-        circuit, w, backend=TorchBackend(tail_threshold=1 << 8)))
-    t0 = time.perf_counter()
-    p_cpu = prove(circuit, w, backend=TorchBackend(device="cpu",
-                                                   tail_threshold=1 << 8))
-    dt_cpu = time.perf_counter() - t0
-    if p_gpu != p_cpu:
-        raise AssertionError("k=12 proof on the card differs from the CPU's")
-    if not verify(p_gpu, circuit):
-        raise AssertionError("the port's verifier rejected the k=12 proof")
-    print(f"  synth_circuit(12, 10), tail 2^8: card proof == CPU proof "
-          f"(card {dt_gpu:.3f} s, CPU {dt_cpu:.3f} s), verified", flush=True)
+    for label, kw in (("per-round engine, tail 2^8",
+                       dict(fused=False, tail_threshold=1 << 8)),
+                      ("fused engine", {})):
+        p_gpu, dt_gpu = sync_time(lambda: prove(circuit, w,
+                                                backend=TorchBackend(**kw)))
+        t0 = time.perf_counter()
+        p_cpu = prove(circuit, w, backend=TorchBackend(device="cpu", **kw))
+        dt_cpu = time.perf_counter() - t0
+        if p_gpu != p_cpu:
+            raise AssertionError(f"k=12 proof on the card differs from the CPU's "
+                                 f"({label})")
+        if not verify(p_gpu, circuit):
+            raise AssertionError(f"the port's verifier rejected the k=12 proof ({label})")
+        print(f"  synth_circuit(12, 10), {label}: card proof == CPU proof "
+              f"(card {dt_gpu:.3f} s, CPU {dt_cpu:.3f} s), verified", flush=True)
+
+    # one fused layer, deferred: its transcript against the host engine's,
+    # then a corrupted device challenge must fail the host check
+    layer = circuit.layers[1]
+    rng = np.random.default_rng(5)
+    z = [rand_field(rng, P) for _ in range(layer.k_cur)]
+    struct = mle_struct(w[2])
+    args = (z, w[2], layer.add_gates, layer.mult_gates, layer.k_cur,
+            layer.k_next, struct)
+    arrays, finish = F.prove_layer_sumcheck_fused(*args, Mimc7(), defer=True,
+                                                  device=DEVICE)
+    if finish(F.download(arrays)) != prove_layer_sumcheck(*args, Mimc7()):
+        raise AssertionError("fused layer transcript differs from the host engine's")
+    arrays[2][0, 0] ^= 1
+    try:
+        finish(F.download(arrays))
+    except RuntimeError as e:
+        print(f"  corrupted device challenge: RuntimeError raised ({e})", flush=True)
+    else:
+        raise AssertionError("a corrupted device challenge passed the host check")
 
 
 def main() -> int:
@@ -331,6 +544,10 @@ def main() -> int:
     from gkr_tpu_torch import TorchBackend, prove, verify
     from gkr_tpu_torch.circuit import synth_circuit
     from gkr_tpu_torch.field import P, R
+    from gkr_tpu_torch.mimc import Mimc7
+    from gkr_tpu_torch.mle import mle_struct
+    from gkr_tpu_torch.sumcheck import prove_layer_sumcheck
+    from gkr_tpu_torch.torcheng import fused as F
     from gkr_tpu_torch.torcheng import kernels as K
     from gkr_tpu_torch.torcheng import limbs as L
 
@@ -347,26 +564,64 @@ def main() -> int:
     path = K.build()
     print(f"  {path.name}: {time.perf_counter() - t0:.2f} s", flush=True)
     for line in K.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Function properties" in line:
             print("  ptxas: " + line.strip(), flush=True)
 
-    print("[3] kernels against their plain versions (n = 2^20; tolerance: "
-          "bit-exact, max abs limb error 0)", flush=True)
-    rows = phase_kernels(K, L, P, R, sm_clock_hz)
+    t0 = time.perf_counter()
+    circuit, inputs = synth_circuit(20, 16)
+    print(f"  host: generate synth_circuit(20, 16): {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    w = circuit.evaluate(inputs)
+    print(f"  host: evaluate: {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    for i in range(1, len(w)):
+        L.canonical_limbs(w[i])
+    print(f"  host: pack bytes join of the {len(w) - 1} device tables: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    print("[4] slice: prove(synth_circuit(20, 16), TorchBackend())", flush=True)
-    launches, circuit, w, wall_s = phase_slice(K, L, prove, verify,
-                                               TorchBackend, synth_circuit)
+    print("[3] kernels against their plain versions (tolerance: bit-exact, "
+          "max abs limb error 0)", flush=True)
+    rows, record, bound = phase_kernels(K, L, P, R, sm_clock_hz)
+    phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit)
 
-    print("[4b] where the prove's device time goes (torch.profiler)", flush=True)
-    phase_profile(prove, TorchBackend, circuit, w, wall_s)
-    del circuit, w
+    Timed = timed_backend(TorchBackend)
+    print("[4] per-round slice: prove(synth_circuit(20, 16), "
+          "TorchBackend(fused=False))", flush=True)
+    per_round, _, wall_pr = phase_slice(K, prove, verify, Timed(fused=False),
+                                        circuit, w, EXPECTED_PER_ROUND)
+    print("[4b] where the per-round prove's device time goes (torch.profiler)",
+          flush=True)
+    phase_profile(prove, lambda: TorchBackend(fused=False), circuit, w, wall_pr)
 
-    print("[5] card against CPU", flush=True)
-    phase_card_vs_cpu(prove, verify, TorchBackend, synth_circuit)
+    print("[5] fused slice: prove(synth_circuit(20, 16), TorchBackend())",
+          flush=True)
+    backend = Timed()
+    fused, proof, wall_f = phase_slice(K, prove, verify, backend, circuit, w,
+                                       EXPECTED_FUSED)
+    backend.seconds = {}
+    again, wall_warm = sync_time(lambda: prove(circuit, w, backend=backend))
+    if again != proof:
+        raise AssertionError("a second fused proof of the circuit differs")
+    print(f"  second prove, same backend (wiring plans cached): {wall_warm:.3f} s",
+          flush=True)
+    for name, sec in backend.seconds.items():
+        print(f"    {name}: {sec:.3f} s", flush=True)
+    print("[5b] where the fused prove's device time goes, plans cached "
+          "(torch.profiler)", flush=True)
+    phase_profile(prove, lambda: backend, circuit, w, wall_warm)
+    print(f"  fused prove {wall_f:.3f} s (plans built), {wall_warm:.3f} s "
+          f"(cached), against per-round {wall_pr:.3f} s (host clock, this run)",
+          flush=True)
+    del circuit, w, proof
+
+    print("[6] card against CPU", flush=True)
+    phase_card_vs_cpu(F, prove, verify, TorchBackend, synth_circuit, mle_struct,
+                      prove_layer_sumcheck, Mimc7, P)
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        src = per_round if row["name"] in LAUNCHES_FROM_PER_ROUND else fused
+        row["launches"] = src[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

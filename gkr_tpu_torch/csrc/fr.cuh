@@ -24,6 +24,16 @@ __constant__ uint32_t FR_P[8] = {
 // -p^-1 mod 2^32
 #define FR_NPRIME32 0xefffffffu
 
+// 1 in Montgomery form: R mod p.
+__constant__ uint32_t FR_ONE[8] = {
+    0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
+    0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
+
+// R^2 mod p: fr_mul(x, R^2) = x * R mod p.
+__constant__ uint32_t FR_R2[8] = {
+    0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u,
+    0x53bb8085u, 0x8c49833du, 0x7f4e44a5u, 0x0216d0b1u};
+
 struct Fr {
   uint32_t w[8];
 };
@@ -143,4 +153,64 @@ __device__ __forceinline__ Fr fr_mul(const Fr& a, const Fr& b) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) r.w[j] = t[j];
   return fr_reduce_once(r);
+}
+
+__device__ __forceinline__ Fr fr_const(const uint32_t* c) {
+  Fr r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = c[j];
+  return r;
+}
+
+// a / 2 mod p: a + p when a is odd (a + p < 2^255, no carry out), then >> 1.
+__device__ __forceinline__ Fr fr_half(const Fr& a) {
+  Fr s = a;
+  if (a.w[0] & 1u) {
+    uint32_t carry = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t v = (uint64_t)a.w[j] + FR_P[j] + carry;
+      s.w[j] = (uint32_t)v;
+      carry = (uint32_t)(v >> 32);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 7; ++j) s.w[j] = (s.w[j] >> 1) | (s.w[j + 1] << 31);
+  s.w[7] >>= 1;
+  return s;
+}
+
+// Montgomery reduction of a wide value T (17 words, value < p * 2^256) ->
+// T / 2^256 mod p, canonical.  Word i is cancelled at step i by m * p and
+// the carry runs to the top; the result (T + M p) / 2^256 < 2p.
+__device__ __forceinline__ Fr fr_redc_wide(uint32_t T[17]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint32_t m = T[i] * FR_NPRIME32;
+    uint64_t c = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)T[i + j] + (uint64_t)m * FR_P[j] + c;
+      T[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+#pragma unroll
+    for (int j = i + 8; j < 17; ++j) {
+      uint64_t s = (uint64_t)T[j] + c;
+      T[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+  }
+  Fr r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = T[8 + j];
+  return fr_reduce_once(r);
+}
+
+// x^7: four dependent products (x^2, x^4, x^6, x^7).
+__device__ __forceinline__ Fr fr_pow7(const Fr& x) {
+  Fr x2 = fr_mul(x, x);
+  Fr x4 = fr_mul(x2, x2);
+  Fr x6 = fr_mul(x4, x2);
+  return fr_mul(x6, x);
 }

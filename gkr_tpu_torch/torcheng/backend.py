@@ -14,6 +14,7 @@ from ..mle import (MleStruct, SparseMle, line, mle_struct, restrict_to_line,
                    sparse_from_dense)
 from ..sumcheck import prove_layer_sumcheck
 from . import limbs as L
+from .fused import LayerWiring, build_wiring, prove_layer_sumcheck_fused
 from .sumcheck import DEVICE_TAIL, prove_layer_sumcheck_torch
 
 
@@ -58,20 +59,18 @@ def _multi_point_fold(W: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 
 
 class TorchBackend:
-    """Device compute backend.  Caches packed tables per layer index.
+    """Device compute backend.  Caches packed tables per layer index and
+    wiring plans per gate list.
 
     `device=None` means the CUDA card, and raises where there is none; the
     tests pass `device="cpu"`, where every kernel wrapper runs its plain
-    version.  `fused` selects the fused layer engine, which a later slice
-    of the port brings (ROADMAP queue 1, item 4); until then the default is
-    False, the per-round engine."""
+    version.  `fused=True` (the default, as `JaxBackend`'s) runs each layer
+    sumcheck on the fused engine (`torcheng.fused`); `fused=False` on the
+    per-round engine (`torcheng.sumcheck`), which finishes tables below
+    `tail_threshold` entries on the host."""
 
     def __init__(self, device=None, host_threshold: int = 10,
-                 tail_threshold: int | None = None, fused: bool = False):
-        if fused:
-            raise NotImplementedError(
-                "the fused layer engine is not ported yet (ROADMAP queue 1, "
-                "item 4: fused layer sumcheck)")
+                 tail_threshold: int | None = None, fused: bool = True):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchBackend: no CUDA device (pass "
@@ -80,6 +79,9 @@ class TorchBackend:
         self.tail_threshold = DEVICE_TAIL if tail_threshold is None else tail_threshold
         self.fused = fused
         self._packed: dict[int, torch.Tensor] = {}
+        # circuit-static wiring plans, guarded by gate-list identity, so they
+        # survive reset_cache(); a different circuit passes other list objects
+        self._wiring: dict[int, tuple] = {}
 
     # -- helpers ----------------------------------------------------------
 
@@ -90,6 +92,20 @@ class TorchBackend:
         """Called by prove() at proof start: the per-layer packed-table
         cache must not leak between circuits."""
         self._packed = {}
+
+    def wiring(self, layer_idx: int, add_gates, mult_gates, n: int) -> LayerWiring:
+        """The layer's wiring plan on the device, keyed by the gate lists'
+        identity, their lengths and n.  Gate lists are taken as immutable
+        once proved: an element overwritten in place in the same list object
+        goes unseen (build a fresh circuit instead)."""
+        key = (len(add_gates), len(mult_gates), n)
+        ent = self._wiring.get(layer_idx)
+        if (ent is not None and ent[0] is add_gates and ent[1] is mult_gates
+                and ent[2] == key):
+            return ent[3]
+        w = build_wiring(add_gates, mult_gates, n, self.device)
+        self._wiring[layer_idx] = (add_gates, mult_gates, key, w)
+        return w
 
     def packed(self, layer_idx: int | None, w_values) -> torch.Tensor:
         if layer_idx is None:
@@ -119,10 +135,17 @@ class TorchBackend:
         if self._use_host(k_next):
             return prove_layer_sumcheck(z, w_next, add_gates, mult_gates,
                                         k_cur, k_next, w_struct, transcript)
+        w_dev = self.packed(layer_idx, w_next)
+        if self.fused:
+            wiring = (self.wiring(layer_idx, add_gates, mult_gates, 1 << k_next)
+                      if layer_idx is not None else None)
+            return prove_layer_sumcheck_fused(
+                z, w_next, add_gates, mult_gates, k_cur, k_next, w_struct,
+                transcript, w_dev=w_dev, wiring=wiring)
         return prove_layer_sumcheck_torch(
             z, w_next, add_gates, mult_gates, k_cur, k_next, w_struct,
-            transcript, w_dev=self.packed(layer_idx, w_next),
-            tail_threshold=self.tail_threshold, device=self.device)
+            transcript, w_dev=w_dev, tail_threshold=self.tail_threshold,
+            device=self.device)
 
     def restrict_to_line(self, w_values, b, c, struct,
                          layer_idx: int | None = None):

@@ -1,4 +1,4 @@
-"""The per-round layer sumcheck's four CUDA kernels, with their plain versions.
+"""The layer sumcheck's CUDA kernels, with their plain versions.
 
 Each wrapper takes int32 limb tensors (see `limbs`).  For a tensor on the
 CPU it runs the plain PyTorch version beside it; for a CUDA tensor it
@@ -11,7 +11,7 @@ The kernels are compiled from the sources in the checkout at first use
 this module needs neither `nvcc` nor a card.
 
 Bounds below are for one H100 SXM (3.35 TB/s; 132 SMs x 64 32-bit IMAD per
-clock) at the per-round engine's shapes, n = 2^20 entries, 64 B an element.
+clock) at the layer engines' shapes, n = 2^20 entries, 64 B an element.
 A Montgomery product costs 264 32-bit IMADs in the kernels' 8 x 32-bit CIOS
 (128 32x32->64-bit products at two IMADs each, plus 8 low products).
 """
@@ -24,17 +24,24 @@ import os
 import shutil
 import subprocess
 import tempfile
+from functools import lru_cache
 from pathlib import Path
 
 import torch
 
+from ..mimc import Mimc7, mimc7_constants
 from . import limbs as L
 
 N_LIMBS = 16
 THREADS = 256
-MAX_EVAL_BLOCKS = 1024       # partial sums per eval launch (second pass: sum_mod)
+MAX_EVAL_BLOCKS = 1024       # partial sums per eval launch
+SEG_LIMBS = 18               # limbs of a relaxed segment sum (csrc SEG_LIMBS)
+MIMC_ROUNDS = 91             # the device MiMC's constant table
 
-LAUNCHES = {"mont_mul": 0, "fold": 0, "phase1_eval": 0, "phase2_eval": 0}
+LAUNCHES = {"mont_mul": 0, "fold": 0, "phase1_eval": 0, "phase2_eval": 0,
+            "phase1_partials": 0, "phase2_partials": 0, "round_coeffs": 0,
+            "mimc_multi": 0, "eq_table": 0, "seg_sum": 0, "normalize": 0,
+            "normalize_mul": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -98,6 +105,11 @@ def _load():
             "gkr_fold": [vp, vp, vp, ll, vp],
             "gkr_phase1_partials": [vp, vp, ll, i, vp],
             "gkr_phase2_partials": [vp, vp, vp, ll, i, vp],
+            "gkr_eq_double": [vp, vp, ll, vp],
+            "gkr_seg_sum": [vp, vp, vp, vp, ll, i, vp],
+            "gkr_normalize": [vp, i, vp, vp, ll, vp],
+            "gkr_round_coeffs": [vp, i, vp, vp],
+            "gkr_mimc_multi": [vp, i, vp, i, vp, vp],
         }
         for name, args in signatures.items():
             fn = getattr(lib, name)
@@ -159,9 +171,13 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(a.shape)
 
 
+def _normalize_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """(..., <=32) int64 relaxed limbs -> canonical Montgomery, no kernel."""
+    return mont_mul_plain(L.redc(x), L.const("R2_LIMBS", x.device))
+
+
 def _sum_mod_plain(x: torch.Tensor) -> torch.Tensor:
-    return mont_mul_plain(L.redc(x.sum(dim=0, dtype=torch.int64)),
-                          L.const("R2_LIMBS", x.device))
+    return _normalize_rows_plain(x.sum(dim=0, dtype=torch.int64))
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -219,80 +235,327 @@ def fold(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------- phase evals
 # Replace pallas_kernels.pl_phase1_eval / pl_phase2_eval
-# (gkr_tpu/jaxeng/pallas_kernels.py:318, :368).  Blocks run in no order, so
-# the sum runs in two passes: each block of 256 threads walks the half-table
-# with a grid stride, adds canonically in registers, folds its threads by a
-# tree of field adds in shared memory and writes one canonical (3, 16)
-# partial; `limbs.sum_mod` adds the <= 1024 partials, as the JAX package's
-# XLA reduce does.  Bounds at n = 2^20: phase 1 reads 268 MB = 80 us, against
-# 3 * 2^19 products = 4.2e8 IMAD = 25 us; phase 2 reads 201 MB = 60 us,
-# against 6 * 2^19 products = 8.3e8 IMAD = 50 us.  Both bind on bytes.
+# (gkr_tpu/jaxeng/pallas_kernels.py:318, :368) and, as the fused engine's
+# entry points, pl_phase1_partials / pl_phase2_partials (:406, :428).  Blocks
+# run in no order, so the sum runs in two passes: each block of 256 threads
+# walks the half-table with a grid stride, adds canonically in registers,
+# folds its threads by a tree of field adds in shared memory and writes one
+# canonical (3, 16) partial.  The per-round engine's `phase*_eval` adds the
+# <= 1024 partials with `limbs.sum_mod`, as the JAX package's XLA reduce
+# does; the fused engine's `phase*_partials` hand them to `round_coeffs`.
+# Bounds at n = 2^20: phase 1 reads 268 MB = 80 us, against 3 * 2^19
+# products = 4.2e8 IMAD = 25 us; phase 2 reads 201 MB = 60 us, against
+# 6 * 2^19 products = 8.3e8 IMAD = 50 us.  Both bind on bytes.
 
 def _eval_grid(half: int) -> int:
     return max(1, min(MAX_EVAL_BLOCKS, -(-half // THREADS)))
 
 
-def phase1_eval_plain(S: torch.Tensor) -> torch.Tensor:
-    lo, hi, at2 = L.eval3_halves(S)
+def _phase1_terms_plain(S: torch.Tensor) -> torch.Tensor:
+    """(n, 4, 16) -> (3, n/2, 16): (HA1_t + HM_t) * W_t + HA2_t per entry at
+    t = 0, 1, 2."""
     out = []
-    for X in (lo, hi, at2):
+    for X in L.eval3_halves(S):
         w, ha1, ha2, hm = X[:, 0], X[:, 1], X[:, 2], X[:, 3]
-        out.append(_sum_mod_plain(
-            L.add_mod(mont_mul_plain(L.add_mod(ha1, hm), w), ha2)))
+        out.append(L.add_mod(mont_mul_plain(L.add_mod(ha1, hm), w), ha2))
     return torch.stack(out)
 
 
-def phase1_partials(S: torch.Tensor) -> torch.Tensor:
-    """The phase-1 kernel alone, on a CUDA stack: (G, 3, 16) canonical
-    per-block sums."""
+def _phase2_terms_plain(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """(n, 3, 16) -> (3, n/2, 16): FA_t * (wb + W_t) + FMwb_t * W_t."""
+    out = []
+    for X in L.eval3_halves(S):
+        w, fa, fmwb = X[:, 0], X[:, 1], X[:, 2]
+        out.append(L.add_mod(mont_mul_plain(fa, L.add_mod(wb, w)),
+                             mont_mul_plain(fmwb, w)))
+    return torch.stack(out)
+
+
+def _block_sums_plain(terms: torch.Tensor) -> torch.Tensor:
+    """(3, half, 16) canonical terms -> (G, 3, 16): the sum mod p of the
+    entries each block of the eval kernels' grid visits (entry s goes to
+    block (s // THREADS) % G)."""
+    half = terms.shape[1]
+    grid = _eval_grid(half)
+    blk = (torch.arange(half, device=terms.device) // THREADS) % grid
+    acc = torch.zeros((grid, 3, N_LIMBS), dtype=torch.int64, device=terms.device)
+    acc.index_add_(0, blk, terms.transpose(0, 1).to(torch.int64))
+    return _normalize_rows_plain(acc)
+
+
+def phase1_eval_plain(S: torch.Tensor) -> torch.Tensor:
+    return torch.stack([_sum_mod_plain(t) for t in _phase1_terms_plain(S)])
+
+
+def phase2_eval_plain(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    return torch.stack([_sum_mod_plain(t) for t in _phase2_terms_plain(S, wb)])
+
+
+def phase1_partials_plain(S: torch.Tensor) -> torch.Tensor:
+    return _block_sums_plain(_phase1_terms_plain(S))
+
+
+def phase2_partials_plain(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    return _block_sums_plain(_phase2_terms_plain(S, wb))
+
+
+def _check_stack(S: torch.Tensor, tables: int, wb=None) -> torch.device:
+    dev = _check_limbs(S) if wb is None else _check_limbs(S, wb)
+    if S.dim() != 3 or S.shape[1] != tables or S.shape[0] < 2 or S.shape[0] % 2:
+        raise ValueError(f"phase stack of shape {tuple(S.shape)}")
+    if wb is not None and wb.numel() != N_LIMBS:
+        raise ValueError(f"wb of shape {tuple(wb.shape)}")
+    return dev
+
+
+def _partials(name: str, S: torch.Tensor, wb=None) -> torch.Tensor:
+    """Launch the phase-1 (wb None) or phase-2 eval kernel on a CUDA stack:
+    (G, 3, 16) canonical per-block sums, counted under `name`."""
     S = S.contiguous()
     half = S.shape[0] // 2
     grid = _eval_grid(half)
     partials = torch.empty((grid, 3, N_LIMBS), dtype=S.dtype, device=S.device)
-    _launch("phase1_eval", S.device, _load().gkr_phase1_partials, _ptr(S),
-            _ptr(partials), half, grid)
+    lib = _load()
+    if wb is None:
+        _launch(name, S.device, lib.gkr_phase1_partials, _ptr(S),
+                _ptr(partials), half, grid)
+    else:
+        wb = wb.contiguous()
+        _launch(name, S.device, lib.gkr_phase2_partials, _ptr(S), _ptr(wb),
+                _ptr(partials), half, grid)
     return partials
 
 
 def phase1_eval(S: torch.Tensor) -> torch.Tensor:
     """S (n, 4, 16) = [W, HA1, HA2, HM] -> y (3, 16): the round polynomial
     sum (HA1_t + HM_t) * W_t + HA2_t at t = 0, 1, 2."""
-    dev = _check_limbs(S)
-    if S.dim() != 3 or S.shape[1] != 4 or S.shape[0] % 2:
-        raise ValueError(f"phase-1 stack of shape {tuple(S.shape)}")
-    if dev.type == "cpu":
+    if _check_stack(S, 4).type == "cpu":
         return phase1_eval_plain(S)
-    return L.sum_mod(phase1_partials(S))
-
-
-def phase2_eval_plain(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
-    lo, hi, at2 = L.eval3_halves(S)
-    out = []
-    for X in (lo, hi, at2):
-        w, fa, fmwb = X[:, 0], X[:, 1], X[:, 2]
-        out.append(_sum_mod_plain(L.add_mod(
-            mont_mul_plain(fa, L.add_mod(wb, w)), mont_mul_plain(fmwb, w))))
-    return torch.stack(out)
-
-
-def phase2_partials(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
-    """The phase-2 kernel alone, on CUDA tensors: (G, 3, 16) canonical
-    per-block sums."""
-    S, wb = S.contiguous(), wb.contiguous()
-    half = S.shape[0] // 2
-    grid = _eval_grid(half)
-    partials = torch.empty((grid, 3, N_LIMBS), dtype=S.dtype, device=S.device)
-    _launch("phase2_eval", S.device, _load().gkr_phase2_partials, _ptr(S), _ptr(wb),
-            _ptr(partials), half, grid)
-    return partials
+    return L.sum_mod(_partials("phase1_eval", S))
 
 
 def phase2_eval(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
     """S (n, 3, 16) = [W, FA, FMwb], wb (16,) = W~(b*) -> y (3, 16): the
     round polynomial sum FA_t * (wb + W_t) + FMwb_t * W_t at t = 0, 1, 2."""
-    dev = _check_limbs(S, wb)
-    if S.dim() != 3 or S.shape[1] != 3 or S.shape[0] % 2 or wb.numel() != N_LIMBS:
-        raise ValueError(f"phase-2 stack of shape {tuple(S.shape)}")
-    if dev.type == "cpu":
+    if _check_stack(S, 3, wb).type == "cpu":
         return phase2_eval_plain(S, wb)
-    return L.sum_mod(phase2_partials(S, wb))
+    return L.sum_mod(_partials("phase2_eval", S, wb))
+
+
+def phase1_partials(S: torch.Tensor) -> torch.Tensor:
+    """The phase-1 sums of `phase1_eval` left as the grid's (G, 3, 16)
+    canonical per-block partials, for `round_coeffs`."""
+    if _check_stack(S, 4).type == "cpu":
+        return phase1_partials_plain(S)
+    return _partials("phase1_partials", S)
+
+
+def phase2_partials(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """The phase-2 sums of `phase2_eval` as (G, 3, 16) block partials."""
+    if _check_stack(S, 3, wb).type == "cpu":
+        return phase2_partials_plain(S, wb)
+    return _partials("phase2_partials", S, wb)
+
+
+# --------------------------------------------------------------- eq table
+# Replaces pallas_kernels.pl_eq_table_T (gkr_tpu/jaxeng/pallas_kernels.py:214,
+# its kernel _eq_extend_T / _mul_scalar2_kernel :191, :180) and, in the
+# per-round engine, the XLA doubling chain limbs.eq_table_device.  One launch per
+# MSB-first doubling, in place in the output buffer: k launches for a k-point
+# table, the last writing 2^k entries.  Bound at k = 20: the table is
+# written once (67 MB = 20 us) and takes 2^20 - 1 doubling-step pairs, 2^21
+# products = 5.5e8 IMAD = 33 us: operations bind.  z stays on the card (for
+# phase 2 it is b*, the device challenges).
+
+def eq_table_plain(z: torch.Tensor) -> torch.Tensor:
+    one = L.const("MONT_ONE_LIMBS", z.device).reshape(1, N_LIMBS)
+    t = one.clone()
+    for j in range(z.shape[0] - 1, -1, -1):
+        zj = z[j].reshape(1, N_LIMBS)
+        t = torch.cat([mont_mul_plain(t, L.sub_mod(one, zj)),
+                       mont_mul_plain(t, zj)])
+    return t
+
+
+def eq_table(z: torch.Tensor) -> torch.Tensor:
+    """chi table of the point z (k, 16) Montgomery limbs -> (2^k, 16),
+    MSB-first (z_0 is the top index bit), as `gkr_tpu_torch.mle.eq_table`."""
+    dev = _check_limbs(z)
+    if z.dim() != 2:
+        raise ValueError(f"eq_table of a point of shape {tuple(z.shape)}")
+    if dev.type == "cpu":
+        return eq_table_plain(z)
+    z = z.contiguous()
+    k = z.shape[0]
+    t = torch.empty((1 << k, N_LIMBS), dtype=z.dtype, device=dev)
+    t[0] = L.const("MONT_ONE_LIMBS", dev)
+    lib = _load()
+    for j in range(k - 1, -1, -1):
+        _launch("eq_table", dev, lib.gkr_eq_double, _ptr(t), _ptr(z[j]),
+                1 << (k - 1 - j))
+    return t
+
+
+# ------------------------------------------------------------ segment sum
+# Replaces pallas_kernels.pl_seg_sum_T (gkr_tpu/jaxeng/pallas_kernels.py:618,
+# kernel _make_seg_kernel :579) and the XLA cumsum branch it falls back to
+# for hot buckets (fused._seg_sorted_T, gkr_tpu/jaxeng/fused.py:157).  The
+# gates arrive sorted by bucket key; bucket b holds gates [hib[b-1], hib[b]).
+# One thread a bucket sums up to 32 gates itself; a larger bucket is summed
+# by the whole block in 64-bit limbs, so one kernel is exact at any skew
+# (2^30 gates in one bucket still fit) and a hot bucket is spread over 256
+# threads.  The output is the exact integer sum as 18 clean 16-bit limbs,
+# limb-major (T, 18, n) as `normalize` reads it.  Bound at the 2^20 layer's
+# phase-1 add plan (T = 2, 2^19 gates): 67 MB of weights + 4 MB of
+# boundaries read, 151 MB written = 66 us: bytes bind (no products).  The
+# library call for the same sums is `index_add_` of the limbs in int64.
+
+def _carry_limbs(seg: torch.Tensor) -> torch.Tensor:
+    """(m, 16) int64 exact limb sums (value < 2^288) -> (18, m) clean
+    16-bit limbs of the same integer."""
+    out, c = [], torch.zeros_like(seg[:, 0])
+    for i in range(N_LIMBS):
+        s = seg[:, i] + c
+        out.append(s & L.MASK)
+        c = s >> 16
+    out += [c & L.MASK, c >> 16]
+    return torch.stack(out)
+
+
+def seg_sum_plain(weights, hib: torch.Tensor) -> torch.Tensor:
+    hib = hib.to(torch.int64)
+    start = torch.cat([hib.new_zeros(1), hib[:-1]])
+    out = []
+    for w in weights:
+        C = torch.zeros((w.shape[0] + 1, N_LIMBS), dtype=torch.int64,
+                        device=w.device)
+        torch.cumsum(w.to(torch.int64), dim=0, out=C[1:])
+        out.append(_carry_limbs(C[hib] - C[start]))
+    return torch.stack(out).to(L.LIMB_DTYPE)
+
+
+def seg_sum(weights, hib: torch.Tensor) -> torch.Tensor:
+    """Per-bucket sums of T = 1 or 2 weight tables (G, 16) sorted by bucket
+    key, with hib (n,) int32 the running gate count up to each bucket ->
+    (T, 18, n) relaxed limbs of the exact sums (each limb < 2^16)."""
+    weights = list(weights)
+    dev = _check_limbs(*weights)
+    G = weights[0].shape[0]
+    if not 1 <= len(weights) <= 2 or any(w.shape != (G, N_LIMBS) for w in weights):
+        raise ValueError("seg_sum takes one or two (G, 16) tables")
+    if hib.dtype != torch.int32 or hib.dim() != 1 or hib.device != dev:
+        raise ValueError("hib must be an int32 (n,) tensor beside the weights")
+    if dev.type == "cpu":
+        return seg_sum_plain(weights, hib)
+    weights = [w.contiguous() for w in weights]
+    n = hib.numel()
+    out = torch.empty((len(weights), SEG_LIMBS, n), dtype=L.LIMB_DTYPE,
+                      device=dev)
+    if n:
+        w1 = weights[-1]
+        _launch("seg_sum", dev, _load().gkr_seg_sum, _ptr(hib.contiguous()),
+                _ptr(weights[0]), _ptr(w1), _ptr(out), n, len(weights))
+    return out
+
+
+# ---------------------------------------------------------------- normalize
+# Replaces pallas_kernels.pl_normalize_T and pl_normalize_mul_T
+# (gkr_tpu/jaxeng/pallas_kernels.py:521, :554): one kernel, the scalar
+# pointer null or not.  One thread an entry: the relaxed limbs' carry chain
+# into 16 words, a 512-bit Montgomery reduction, x R^2 and x s.  Bound at
+# n = 2^20 with 18 limbs in: 75 MB read + 67 MB written = 43 us, against
+# 1 product (2 with s) an entry plus the reduction's 8 x 8 word products,
+# about 3 products = 8.3e8 IMAD = 50 us: operations bind, barely.
+
+def normalize_plain(t: torch.Tensor, scalar=None) -> torch.Tensor:
+    out = _normalize_rows_plain(t.T.to(torch.int64))
+    if scalar is not None:
+        out = mont_mul_plain(out, scalar.reshape(1, N_LIMBS))
+    return out
+
+
+def normalize(t: torch.Tensor, scalar: torch.Tensor | None = None) -> torch.Tensor:
+    """Relaxed limbs t (lin, n), lin <= 32, each in [0, 2^31), value
+    < p * 2^256 -> (n, 16) canonical Montgomery t mod p, times `scalar`
+    (16,) when given."""
+    dev = t.device
+    if t.dtype != L.LIMB_DTYPE or t.dim() != 2 or not 1 <= t.shape[0] <= 32:
+        raise ValueError(f"relaxed limbs of {t.dtype} {tuple(t.shape)}")
+    if scalar is not None and (_check_limbs(scalar) != dev
+                               or scalar.numel() != N_LIMBS):
+        raise ValueError("the scalar must be one (16,) element beside t")
+    if dev.type == "cpu":
+        return normalize_plain(t, scalar)
+    t = t.contiguous()
+    n = t.shape[1]
+    out = torch.empty((n, N_LIMBS), dtype=L.LIMB_DTYPE, device=dev)
+    if n:
+        s = None if scalar is None else _ptr(scalar.contiguous())
+        _launch("normalize" if scalar is None else "normalize_mul", dev,
+                _load().gkr_normalize, _ptr(t), t.shape[0], s, _ptr(out), n)
+    return out
+
+
+# ------------------------------------------------------------ round coeffs
+# Replaces pallas_kernels.pl_round_coeffs (gkr_tpu/jaxeng/pallas_kernels.py
+# :479, kernel _finalize_kernel :449): the cross-block sum of the eval
+# kernels' <= 1024 partials and the degree-2 interpolation in one block of
+# 256 threads.  Tables halve every round, so there is no rescale factor.
+# Bound: 147 KB read at G = 1024 = 0.04 us and ~1100 field adds: far below
+# one launch; latency binds (the chain of log2(256) tree levels).
+
+def round_coeffs_plain(partials: torch.Tensor) -> torch.Tensor:
+    y0, y1, y2 = (_sum_mod_plain(partials[:, t]) for t in range(3))
+    c2 = mont_mul_plain(L.sub_mod(L.add_mod(y2, y0), L.add_mod(y1, y1)),
+                        L.const("INV2_LIMBS", partials.device))
+    return torch.stack([c2, L.sub_mod(L.sub_mod(y1, y0), c2), y0])
+
+
+def round_coeffs(partials: torch.Tensor) -> torch.Tensor:
+    """(G, 3, 16) canonical block sums of g(0), g(1), g(2) -> (3, 16)
+    coefficients (c2, c1, c0) of the degree-2 round polynomial."""
+    dev = _check_limbs(partials)
+    if partials.dim() != 3 or partials.shape[1] != 3 or partials.shape[0] < 1:
+        raise ValueError(f"partials of shape {tuple(partials.shape)}")
+    if dev.type == "cpu":
+        return round_coeffs_plain(partials)
+    partials = partials.contiguous()
+    out = torch.empty((3, N_LIMBS), dtype=L.LIMB_DTYPE, device=dev)
+    _launch("round_coeffs", dev, _load().gkr_round_coeffs, _ptr(partials),
+            partials.shape[0], _ptr(out))
+    return out
+
+
+# -------------------------------------------------------------------- MiMC
+# Replaces pallas_kernels.pl_mimc_multi (gkr_tpu/jaxeng/pallas_kernels.py
+# :813, kernels _make_mimc_kernel :769 and _make_mimc_kernel_block :739) and
+# jaxeng/mimc_dev.py: MiMC7-91 multi_hash with key 0 of the round's 2 or 3
+# coefficients, so the challenge never leaves the card.  One thread: 91
+# rounds of x^7 = 4 products each, 364 dependent products an element, 1092
+# for three.  Latency binds; no bytes or parallel operations to speak of.
+# The plain version is the host's exact-integer hash (`mimc.Mimc7`): as
+# plain torch limb arithmetic each of the ~1100 serial products would be
+# some hundred tiny launches.
+
+@lru_cache(maxsize=None)
+def _mimc_constants(device: torch.device) -> torch.Tensor:
+    return L.pack(mimc7_constants(MIMC_ROUNDS), device)
+
+
+def mimc_multi_plain(x: torch.Tensor) -> torch.Tensor:
+    return L.pack_scalar(Mimc7(MIMC_ROUNDS).multi_hash(L.unpack(x), 0),
+                         x.device)
+
+
+def mimc_multi(x: torch.Tensor) -> torch.Tensor:
+    """MiMC7-91 multi_hash of the rows of x (len, 16), key 0 -> (16,)."""
+    dev = _check_limbs(x)
+    if x.dim() != 2 or x.shape[0] < 1:
+        raise ValueError(f"mimc_multi of shape {tuple(x.shape)}")
+    if dev.type == "cpu":
+        return mimc_multi_plain(x)
+    x = x.contiguous()
+    out = torch.empty((N_LIMBS,), dtype=L.LIMB_DTYPE, device=dev)
+    _launch("mimc_multi", dev, _load().gkr_mimc_multi, _ptr(x), x.shape[0],
+            _ptr(_mimc_constants(dev)), MIMC_ROUNDS, _ptr(out))
+    return out

@@ -40,6 +40,7 @@ P_LIMBS = _int_to_limbs(P)
 NEG_P_LIMBS = _int_to_limbs((1 << 256) - P)
 R2_LIMBS = _int_to_limbs(R2)
 MONT_ONE_LIMBS = _int_to_limbs(R % P)          # 1 in Montgomery form
+INV2_LIMBS = _int_to_limbs(pow(2, P - 2, P) * R % P)   # 1/2, Montgomery
 
 
 @lru_cache(maxsize=None)
@@ -214,15 +215,3 @@ def eval3_halves(t: torch.Tensor):
     half = t.shape[0] // 2
     lo, hi = t[:half], t[half:]
     return lo, hi, add_mod(hi, sub_mod(hi, lo))
-
-
-def eq_table_device(z_limbs: torch.Tensor) -> torch.Tensor:
-    """chi table over a point given as (k, 16) Montgomery limbs -> (2^k, 16).
-    Built MSB-first like `gkr_tpu_torch.mle.eq_table`."""
-    k = z_limbs.shape[0]
-    one = const("MONT_ONE_LIMBS", z_limbs.device).reshape(1, N_LIMBS)
-    t = one.clone()
-    for j in range(k - 1, -1, -1):
-        z = z_limbs[j].reshape(1, N_LIMBS)
-        t = torch.cat([mul_scalar(t, sub_mod(one, z)), mul_scalar(t, z)])
-    return t

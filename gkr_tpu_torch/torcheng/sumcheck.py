@@ -111,7 +111,7 @@ def prove_layer_sumcheck_torch(
         ga = gate_arrays(add_gates, device)
         gm = gate_arrays(mult_gates, device)
     with record_function("sumcheck.build_phase1"):
-        eqz = L.eq_table_device(L.pack(z, device).reshape(-1, 16))
+        eqz = K.eq_table(L.pack(z, device).reshape(-1, 16))
         ha1, ha2 = _build_phase1_tables(eqz, w_dev, ga, n)
         _, hm = _build_phase1_tables(eqz, w_dev, gm, n)
 
@@ -149,7 +149,7 @@ def prove_layer_sumcheck_torch(
 
     # ---- phase 2 ----
     with record_function("sumcheck.build_phase2"):
-        eqb = L.eq_table_device(L.pack(b_star, device))
+        eqb = K.eq_table(L.pack(b_star, device))
         fa = _build_phase2_table(eqz, eqb, ga, n)
         fmwb = L.mul_scalar(_build_phase2_table(eqz, eqb, gm, n), wb)
     del eqz, eqb

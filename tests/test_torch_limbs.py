@@ -28,6 +28,16 @@ EDGE = [0, 1, 2, P - 1, P - 2, P // 2, (P + 1) // 2, R % P, (1 << 253) - 1,
         P - (1 << 16)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs its files in parallel workers; torch's intra-op threads
+    buy these small limb tensors nothing and take cores from the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rand_field(rng, n):
     raw = rng.bytes(32 * n)
     return [int.from_bytes(raw[32 * i:32 * i + 32], "little") % P
@@ -144,12 +154,15 @@ def test_phase2_eval_plain_matches_jax(wb):
 
 
 def test_eq_table_device_matches_jax_and_host():
-    z = rand_field(np.random.default_rng(8), 4)
+    """The eq_table kernel's plain version (both engines' eq tables) against
+    the JAX limb engine and the host table, edge coordinates included."""
+    z = rand_field(np.random.default_rng(8), 5)
+    z[1], z[3] = 0, P - 1
     jz, tz = both(z)
-    got = L.eq_table_device(tz)
+    got = K.eq_table(tz)
     assert same(got, JL.jeq_table(jz))
     assert L.unpack(got) == eq_table(z)
-    assert L.unpack(L.eq_table_device(tz[:0])) == [1]
+    assert L.unpack(K.eq_table(tz[:0])) == [1]
 
 
 def test_fr_cuh_constants():
@@ -181,12 +194,23 @@ def test_wrappers_take_plain_versions_on_cpu():
     wrong limb types are refused."""
     K.reset_launches()
     S = L.pack(rand_field(np.random.default_rng(10), 8 * 4)).reshape(8, 4, 16)
+    S3 = S[:, :3].contiguous()
     K.phase1_eval(S)
-    K.phase2_eval(S[:, :3].contiguous(), S[0, 0])
+    K.phase2_eval(S3, S[0, 0])
     K.fold(S, S[0, 0])
     K.mont_mul(S, S)
-    assert K.LAUNCHES == {"mont_mul": 0, "fold": 0, "phase1_eval": 0,
-                          "phase2_eval": 0}
+    K.round_coeffs(K.phase1_partials(S))
+    K.round_coeffs(K.phase2_partials(S3, S[0, 0]))
+    K.mimc_multi(S[0, :3])
+    rel = K.seg_sum([S[:, 0], S[:, 1]], torch.tensor([2, 2, 5, 8], dtype=torch.int32))
+    K.normalize(rel[0])
+    K.normalize(rel[1], S[0, 0])
+    K.eq_table(S[:2, 0])
+    assert set(K.LAUNCHES) == {
+        "mont_mul", "fold", "phase1_eval", "phase2_eval", "phase1_partials",
+        "phase2_partials", "round_coeffs", "mimc_multi", "eq_table",
+        "seg_sum", "normalize", "normalize_mul"}
+    assert not any(K.LAUNCHES.values())
     assert K._lib is None
     with pytest.raises(ValueError):
         K.mont_mul(S.to(torch.int64), S.to(torch.int64))

@@ -1,10 +1,12 @@
 """The port's full prove() against the JAX package on the CPU, and the
 port's rules.
 
-Proofs are compared with the per-round JAX engine (JaxBackend(fused=False),
-the configuration the port's first slice carries) and with gkr_tpu's exact
-host engine; a port proof must load into gkr_tpu.proof.Proof and pass
-gkr_tpu.verify.  Field arithmetic is exact: proofs must be identical."""
+The port's per-round engine (TorchBackend(fused=False)) is compared with
+the per-round JAX engine (JaxBackend(fused=False)) and with gkr_tpu's exact
+host engine; the fused engine, the default, with the host engine (here and
+in test_torch_fused.py).  A port proof must load into gkr_tpu.proof.Proof
+and pass gkr_tpu.verify.  Field arithmetic is exact: proofs must be
+identical."""
 
 import os
 import random
@@ -31,7 +33,16 @@ from test_gkr_e2e import (assert_proofs_identical, random_circuit,
                           reference_toy_circuit)
 
 ROOT = Path(__file__).resolve().parent.parent
-NO_LAUNCHES = {"mont_mul": 0, "fold": 0, "phase1_eval": 0, "phase2_eval": 0}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs its files in parallel workers; torch's intra-op threads
+    buy these small limb tensors nothing and take cores from the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def cpu_backend(**kw):
@@ -57,8 +68,9 @@ def test_prove_matches_jax_per_round_engine(case):
     pc = circuit_from(c)
     K.reset_launches()
     got = port.prove(pc, pc.evaluate(inputs),
-                     backend=cpu_backend(host_threshold=0, tail_threshold=1))
-    assert K.LAUNCHES == NO_LAUNCHES
+                     backend=cpu_backend(host_threshold=0, tail_threshold=1,
+                                         fused=False))
+    assert not any(K.LAUNCHES.values())
     assert_proofs_identical(got, want)
     assert port.verify(got, pc, raise_on_fail=True)
 
@@ -69,21 +81,27 @@ def test_prove_matches_host_engine(seed):
     w = c.evaluate(inputs)
     pc = circuit_from(c)
     got = port.prove(pc, pc.evaluate(inputs),
-                     backend=cpu_backend(host_threshold=0, tail_threshold=2))
+                     backend=cpu_backend(host_threshold=0, tail_threshold=2,
+                                         fused=False))
     assert_proofs_identical(got, gkr_tpu.prove(c, w))
 
 
 def test_device_sized_circuit_matches_host_engine():
-    """synth_circuit(12, 10): device rounds on 2^12 tables, host tail below
-    2^8, against gkr_tpu's HostBackend; the kernel counters stay 0."""
+    """synth_circuit(12, 10) against gkr_tpu's HostBackend: the per-round
+    engine (device rounds on 2^12 tables, host tail below 2^8) and the fused
+    engine (every round of the two k = 12 layers on the device path); the
+    kernel counters stay 0."""
     pc, inputs = synth_circuit(12, 10)
+    w = pc.evaluate(inputs)
     K.reset_launches()
-    got = port.prove(pc, pc.evaluate(inputs),
-                     backend=cpu_backend(tail_threshold=1 << 8))
-    assert K.LAUNCHES == NO_LAUNCHES
+    got = port.prove(pc, w, backend=cpu_backend(tail_threshold=1 << 8,
+                                                fused=False))
+    fused = port.prove(pc, w, backend=cpu_backend())
+    assert not any(K.LAUNCHES.values())
     jc = jax_circuit(pc)
     want = gkr_tpu.prove(jc, jc.evaluate(inputs), backend=JaxHostBackend())
     assert_proofs_identical(got, want)
+    assert_proofs_identical(fused, want)
     assert port.verify(got, pc, raise_on_fail=True)
 
 
@@ -121,16 +139,17 @@ def test_torch_backend_needs_a_card(monkeypatch):
     assert port.TorchBackend(device="cpu").device.type == "cpu"
 
 
-def test_fused_engine_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.TorchBackend(device="cpu", fused=True)
+def test_fused_engine_is_the_default():
+    """As JaxBackend's: fused=True unless the per-round engine is asked for."""
     b = port.TorchBackend(device="cpu")
-    assert (b.host_threshold, b.tail_threshold, b.fused) == (10, 1 << 12, False)
+    assert (b.host_threshold, b.tail_threshold, b.fused) == (10, 1 << 12, True)
+    assert not port.TorchBackend(device="cpu", fused=False).fused
 
 
 def test_import_leaves_jax_and_gkr_tpu_out():
     code = ("import sys, gkr_tpu_torch, gkr_tpu_torch.convert, "
-            "gkr_tpu_torch.torcheng.kernels, gkr_tpu_torch.torcheng.backend\n"
+            "gkr_tpu_torch.torcheng.kernels, gkr_tpu_torch.torcheng.backend, "
+            "gkr_tpu_torch.torcheng.fused\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gkr_tpu')]\n"
             "assert not bad, bad\n")
