@@ -10,7 +10,7 @@ Phases, each fatal on failure:
      the shapes of the path that runs it (n = 2^20; the wiring plans of
      synth_circuit(20, 16); a bucket of 70,000 gates), random and edge
      inputs, bit-equal; kernel and plain version timed with CUDA events,
-     `index_add_` beside the segment sum;
+     `index_add_` beside the segment sum, `torch.stack` beside the stack;
   4. per-round slice: prove(synth_circuit(20, 16)) with
      TorchBackend(fused=False), per-stage times, the port's verify, and the
      kernel launch counts of that one prove; then device time by kernel
@@ -42,7 +42,7 @@ N = 1 << 20                      # the main path's table size
 DEVICE = "cuda"
 
 FUSED_ONLY = ("phase1_partials", "phase2_partials", "round_coeffs",
-              "mimc_multi", "seg_sum", "normalize", "normalize_mul")
+              "mimc_multi", "seg_sum", "normalize", "normalize_mul", "stack")
 # Launches of one prove of synth_circuit(20, 16): three layer sumchecks with
 # k_next = 20, 20, 16 (40 + 40 + 32 rounds) on the card.  Both engines build
 # eq(z) over k_cur = 4, 20, 20 points and eq(b*) over 20, 20, 16, one
@@ -58,6 +58,7 @@ EXPECTED_FUSED = {
     # HA1, HA2, HM, FA per wide layer; HA1, HA2, FA for the output layer
     "normalize": 11,
     "normalize_mul": 2,                 # FM * W~(b*), wide layers only
+    "stack": 6,                         # one a build, two builds a layer
     "eq_table": 100,
     "phase1_eval": 0, "phase2_eval": 0,
 }
@@ -166,18 +167,22 @@ def phase_kernels(K, L, P, R, sm_clock_hz):
     imad_rate = 132 * IMAD_PER_SM_CLOCK * sm_clock_hz
     rows = []
 
-    def bound(nbytes, products):
+    def bound(nbytes, products, serial=False):
+        """Bytes at the memory rate against products at the card's IMAD
+        rate, or, for one dependent chain (serial), at one thread's issue
+        rate of one IMAD a clock."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = products * IMAD_PER_PRODUCT / imad_rate * 1e3
+        rate = sm_clock_hz if serial else imad_rate
+        t_ops = products * IMAD_PER_PRODUCT / rate * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     def record(name, replaces, got, want, ms, plain_ms, nbytes, products,
-               library_ms=None):
+               library_ms=None, serial=False):
         err = max_abs_err(got, want)
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version (max abs limb error {err})")
-        b_ms, b_by = bound(nbytes, products)
+        b_ms, b_by = bound(nbytes, products, serial)
         rows.append({"name": name, "route": "cuda",
                      "source": "gkr_tpu_torch/csrc/kernels.cu",
                      "replaces": replaces, "launches": 0,
@@ -401,9 +406,27 @@ def phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit):
     ms = event_ms(lambda: K.mimc_multi(x), 50)
     record("mimc_multi", "gkr_tpu/jaxeng/pallas_kernels.py:813", got, want, ms,
            event_ms(lambda: K.mimc_multi_plain(x), 5, 1),
-           (3 + K.MIMC_ROUNDS + 1) * ELEM_BYTES, 3 * 4 * K.MIMC_ROUNDS)
+           (3 + K.MIMC_ROUNDS + 1) * ELEM_BYTES, 3 * 4 * K.MIMC_ROUNDS,
+           serial=True)
     print(f"    mimc_multi, 3 elements: {3 * 4 * K.MIMC_ROUNDS} dependent products, "
-          f"{ms / (3 * 4 * K.MIMC_ROUNDS) * 1e6:.1f} ns each", flush=True)
+          f"{ms / (3 * 4 * K.MIMC_ROUNDS) * 1e6:.1f} ns each; bound: one thread "
+          f"issuing one IMAD a clock", flush=True)
+
+    # stack: the phase-1 build's (2^20, 4) stack, the phase-2 build's
+    # (2^20, 3) one, and the output layer's with no mult table (None)
+    tabs = [with_edges(random_limbs(rng, (N,), dev), edges, L) for _ in range(4)]
+    for tables in (tabs, tabs[:3], tabs[:3] + [None], [tabs[0], None, tabs[1]]):
+        got, want = K.stack(tables), K.stack_plain(tables)
+        if not torch.equal(got, want):
+            raise AssertionError(f"stack T={len(tables)}: disagrees with its "
+                                 f"plain version")
+    got, want = K.stack(tabs), K.stack_plain(tabs)
+    record("stack", "gkr_tpu/jaxeng/pallas_kernels.py:873", got, want,
+           event_ms(lambda: K.stack(tabs), 30),
+           event_ms(lambda: K.stack_plain(tabs), 10),
+           2 * 4 * N * ELEM_BYTES, 0,
+           library_ms=event_ms(lambda: torch.stack(tabs, dim=1), 10))
+    del tabs, got, want
 
     # the partials entry points of the eval kernels, at n = 2^20 and n = 2
     for n in (2, N):

@@ -14,6 +14,7 @@
 //   gkr_normalize       relaxed -> canonical (x s)   pl_normalize_T / pl_normalize_mul_T
 //   gkr_round_coeffs    partials -> (c2, c1, c0)     pl_round_coeffs
 //   gkr_mimc_multi      MiMC7 multi_hash, key 0      pl_mimc_multi
+//   gkr_stack           T (n, 16) tables -> (n, T, 16)  pl_transpose_T
 //
 // Stacked tables keep the JAX per-round engine's (n, T, 16) layout: entry s
 // of table t is element s*T + t, and the MSB variable splits the table axis
@@ -309,6 +310,24 @@ __global__ void k_mimc_multi(const uint32_t* __restrict__ x, int len,
   fr_store(out, r);
 }
 
+// ------------------------------------------------------------------- stack
+// The phase builds' layout step: T <= 4 tables t_j (n, 16) into the
+// (n, T, 16) stack the round kernels read, out[s][j] = t_j[s] -- the
+// transpose of the (T, n) element axes.  One 16-byte vector a thread: the
+// writes are contiguous and each table is read in runs of 64 bytes.  A null
+// table is written as zeros.
+__global__ void __launch_bounds__(THREADS)
+k_stack(const uint4* __restrict__ t0, const uint4* __restrict__ t1,
+        const uint4* __restrict__ t2, const uint4* __restrict__ t3, int T,
+        uint4* __restrict__ out, long long n) {
+  long long q = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (q >= n * T * 4) return;
+  long long s = q / (4 * T);
+  int j = (int)(q - s * 4 * T);
+  const uint4* src = (j >> 2) == 0 ? t0 : (j >> 2) == 1 ? t1 : (j >> 2) == 2 ? t2 : t3;
+  out[q] = src ? src[4 * s + (j & 3)] : make_uint4(0u, 0u, 0u, 0u);
+}
+
 // ---------------------------------------------------------------- launchers
 static inline unsigned blocks_for(long long n) {
   return (unsigned)((n + THREADS - 1) / THREADS);
@@ -374,6 +393,14 @@ int gkr_mimc_multi(const void* x, int len, const void* cts, int n_rounds,
                    void* out, void* stream) {
   k_mimc_multi<<<1, 1, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x, len, (const uint32_t*)cts, n_rounds, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+int gkr_stack(const void* t0, const void* t1, const void* t2, const void* t3,
+              int T, void* out, long long n, void* stream) {
+  k_stack<<<blocks_for(n * T * 4), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint4*)t0, (const uint4*)t1, (const uint4*)t2, (const uint4*)t3,
+      T, (uint4*)out, n);
   return (int)cudaGetLastError();
 }
 

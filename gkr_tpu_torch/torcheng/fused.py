@@ -9,14 +9,15 @@ The port's counterpart of the JAX package's default engine,
     order, and the bucket boundaries `hib`;
   * the phase-1 build: eq(z) by the `eq_table` kernel, gathers of the
     pre-sorted columns (`index_select`), products by `mont_mul`, per-bucket
-    sums by `seg_sum`, `normalize` into the (n, 4, 16) stack [W, HA1, HA2,
-    HM];
+    sums by `seg_sum`, `normalize`, and `stack` into the (n, 4, 16) stack
+    [W, HA1, HA2, HM];
   * the round chain, every round on the card: `phase*_partials` ->
     `round_coeffs` -> `mimc_multi` (the round's 2 or 3 coefficients, from
     the host's structural schedule) -> `fold` reading the challenge from
     device memory.  Tables halve every round down to one entry;
   * the phase-2 build from the device challenges b*: eq(b*), FA by
-    `normalize`, FM * W~(b*) by `normalize` with the scalar;
+    `normalize`, FM * W~(b*) by `normalize` with the scalar, `stack` into
+    [W, FA, FMwb];
   * one download per layer of the coefficients and challenges, after which
     the host re-hashes every round with its own MiMC7 and raises on any
     divergence.
@@ -94,13 +95,12 @@ def build_wiring(add_gates, mult_gates, n: int, device="cpu") -> LayerWiring:
 
 # ------------------------------------------------------------------ builds
 
-def _build_phase1(w_dev, z_dev, wiring: LayerWiring, n: int):
+def _build_phase1(w_dev, z_dev, wiring: LayerWiring):
     """-> the (n, 4, 16) stack [W, HA1, HA2, HM] and eq(z) for phase 2:
     HA1[b] = sum eq(z, out) and HA2[b] = sum eq(z, out) W[right] over the
     add gates with left b, HM[b] = the mult gates' sum of the latter."""
     eqz = K.eq_table(z_dev)
-    zero = torch.zeros((n, 16), dtype=L.LIMB_DTYPE, device=w_dev.device)
-    ha1 = ha2 = hm = zero
+    ha1 = ha2 = hm = None                   # zeros in the stack
     if wiring.a1 is not None:
         p = wiring.a1
         wa = eqz.index_select(0, p.out)
@@ -112,21 +112,21 @@ def _build_phase1(w_dev, z_dev, wiring: LayerWiring, n: int):
         prod = K.mont_mul(eqz.index_select(0, p.out),
                           w_dev.index_select(0, p.other))
         hm = K.normalize(K.seg_sum([prod], p.hib)[0])
-    return torch.stack([w_dev, ha1, ha2, hm], dim=1), eqz
+    return K.stack([w_dev, ha1, ha2, hm]), eqz
 
 
-def _build_phase2(w_dev, b_star, wb, eqz, wiring: LayerWiring, n: int):
+def _build_phase2(w_dev, b_star, wb, eqz, wiring: LayerWiring):
     """-> the (n, 3, 16) stack [W, FA, FM * wb]: FA[c] (FM[c]) sums
     eq(z, out) eq(b*, left) over the add (mult) gates with right c."""
     eqb = K.eq_table(b_star)
 
     def table(p: PhasePlan | None, scalar=None):
         if p is None:
-            return torch.zeros((n, 16), dtype=L.LIMB_DTYPE, device=w_dev.device)
+            return None                     # zeros in the stack
         prod = K.mont_mul(eqz.index_select(0, p.out), eqb.index_select(0, p.other))
         return K.normalize(K.seg_sum([prod], p.hib)[0], scalar)
 
-    return torch.stack([w_dev, table(wiring.a2), table(wiring.m2, wb)], dim=1)
+    return K.stack([w_dev, table(wiring.a2), table(wiring.m2, wb)])
 
 
 # ------------------------------------------------------------- round chain
@@ -198,12 +198,12 @@ def prove_layer_sumcheck_fused(
         wiring = build_wiring(add_gates, mult_gates, n, device)
 
     with record_function("fused.build_phase1"):
-        S1, eqz = _build_phase1(w_dev, z_dev, wiring, n)
+        S1, eqz = _build_phase1(w_dev, z_dev, wiring)
     with record_function("fused.phase1_rounds"):
         S1, co1, rs1 = _run_phase(S1, sched[:k])
     wb = S1[0, 0]
     with record_function("fused.build_phase2"):
-        S2 = _build_phase2(w_dev, rs1, wb, eqz, wiring, n)
+        S2 = _build_phase2(w_dev, rs1, wb, eqz, wiring)
     del eqz
     with record_function("fused.phase2_rounds"):
         _, co2, rs2 = _run_phase(S2, sched[k:], wb)

@@ -41,7 +41,7 @@ MIMC_ROUNDS = 91             # the device MiMC's constant table
 LAUNCHES = {"mont_mul": 0, "fold": 0, "phase1_eval": 0, "phase2_eval": 0,
             "phase1_partials": 0, "phase2_partials": 0, "round_coeffs": 0,
             "mimc_multi": 0, "eq_table": 0, "seg_sum": 0, "normalize": 0,
-            "normalize_mul": 0}
+            "normalize_mul": 0, "stack": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -110,6 +110,7 @@ def _load():
             "gkr_normalize": [vp, i, vp, vp, ll, vp],
             "gkr_round_coeffs": [vp, i, vp, vp],
             "gkr_mimc_multi": [vp, i, vp, i, vp, vp],
+            "gkr_stack": [vp, vp, vp, vp, i, vp, ll, vp],
         }
         for name, args in signatures.items():
             fn = getattr(lib, name)
@@ -464,8 +465,8 @@ def seg_sum(weights, hib: torch.Tensor) -> torch.Tensor:
 # pointer null or not.  One thread an entry: the relaxed limbs' carry chain
 # into 16 words, a 512-bit Montgomery reduction, x R^2 and x s.  Bound at
 # n = 2^20 with 18 limbs in: 75 MB read + 67 MB written = 43 us, against
-# 1 product (2 with s) an entry plus the reduction's 8 x 8 word products,
-# about 3 products = 8.3e8 IMAD = 50 us: operations bind, barely.
+# 1.5 products an entry (the reduction, half a product's word products,
+# and x R^2; 2.5 with s) = 4.2e8 IMAD = 25 us (42 us with s): bytes bind.
 
 def normalize_plain(t: torch.Tensor, scalar=None) -> torch.Tensor:
     out = _normalize_rows_plain(t.T.to(torch.int64))
@@ -532,7 +533,8 @@ def round_coeffs(partials: torch.Tensor) -> torch.Tensor:
 # jaxeng/mimc_dev.py: MiMC7-91 multi_hash with key 0 of the round's 2 or 3
 # coefficients, so the challenge never leaves the card.  One thread: 91
 # rounds of x^7 = 4 products each, 364 dependent products an element, 1092
-# for three.  Latency binds; no bytes or parallel operations to speak of.
+# for three.  The work is one dependent chain, so its bound is one thread's
+# issue rate, one IMAD a clock: 1092 x 264 IMAD = 146 us at 1.98 GHz.
 # The plain version is the host's exact-integer hash (`mimc.Mimc7`): as
 # plain torch limb arithmetic each of the ~1100 serial products would be
 # some hundred tiny launches.
@@ -558,4 +560,43 @@ def mimc_multi(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((N_LIMBS,), dtype=L.LIMB_DTYPE, device=dev)
     _launch("mimc_multi", dev, _load().gkr_mimc_multi, _ptr(x), x.shape[0],
             _ptr(_mimc_constants(dev)), MIMC_ROUNDS, _ptr(out))
+    return out
+
+
+# -------------------------------------------------------------------- stack
+# Replaces pallas_kernels.pl_transpose_T (gkr_tpu/jaxeng/pallas_kernels.py
+# :873, kernel _tr_kernel :868), the JAX builds' layout step: there W (n, 16)
+# is transposed into the limb-major layout of the (T, 16, n) stack; here W
+# and the built tables go into the row-major (n, T, 16) stack the round
+# kernels read, the transpose of the (T, n) element axes, in one launch a
+# build.  A table given as None is written as zeros (the output layer has no
+# mult gates).  Bound for the 2^20 phase-1 stack: 268 MB read + 268 MB
+# written = 160 us: bytes bind (no products).  The library call for the same
+# layout is `torch.stack(tables, dim=1)`, which is also the plain version.
+
+def stack_plain(tables) -> torch.Tensor:
+    ref = next(t for t in tables if t is not None)
+    return torch.stack([torch.zeros_like(ref) if t is None else t
+                        for t in tables], dim=1)
+
+
+def stack(tables) -> torch.Tensor:
+    """T = 1..4 tables (n, 16), each a tensor or None for zeros ->
+    (n, T, 16) with out[s, j] = tables[j][s]."""
+    tables = list(tables)
+    given = [t for t in tables if t is not None]
+    if not 1 <= len(tables) <= 4 or not given:
+        raise ValueError("stack takes one to four tables, not all None")
+    dev = _check_limbs(*given)
+    n = given[0].shape[0]
+    if any(t.shape != (n, N_LIMBS) for t in given):
+        raise ValueError("stack takes (n, 16) tables of one length")
+    if dev.type == "cpu":
+        return stack_plain(tables)
+    tables = [None if t is None else t.contiguous() for t in tables]
+    out = torch.empty((n, len(tables), N_LIMBS), dtype=L.LIMB_DTYPE, device=dev)
+    if n:
+        srcs = [None if t is None else _ptr(t) for t in tables]
+        srcs += [None] * (4 - len(srcs))
+        _launch("stack", dev, _load().gkr_stack, *srcs, len(tables), _ptr(out), n)
     return out

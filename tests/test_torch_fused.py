@@ -241,6 +241,36 @@ def test_partials_plain_are_block_sums(phase):
     assert torch.equal(L.sum_mod(part), ev)
 
 
+@pytest.mark.parametrize("absent", [(), (3,), (1, 2)])
+def test_stack_plain_matches_jax_transposed_stack(absent):
+    """The builds' stack: W and the tables into (n, T, 16), the transpose of
+    the JAX builds' limb-major (T, 16, n) stack of pl_transpose_T(W) and the
+    tables; an absent (None) table is the JAX build's zero table."""
+    from gkr_tpu.jaxeng import pallas_kernels as PK
+
+    rng = np.random.default_rng(65 + len(absent))
+    n, T = 8, 4
+    vals = rand_field(rng, n * T)
+    vals[:len(EDGE)] = EDGE
+    rows = [np.asarray(JL.pack(vals[j * n:(j + 1) * n])) for j in range(T)]
+    for j in absent:
+        rows[j] = np.zeros_like(rows[j])
+    want = np.transpose(np.asarray(jnp.stack(
+        [PK.pl_transpose_T(jnp.asarray(r)) for r in rows])), (2, 0, 1))
+    tables = [None if j in absent else limbs_from_numpy(r)
+              for j, r in enumerate(rows)]
+    K.reset_launches()
+    got = K.stack(tables)
+    assert no_launches()
+    assert got.shape == (n, T, 16)
+    assert np.array_equal(limbs_to_numpy(got), want)
+    assert torch.equal(K.stack(tables[:3]), got[:, :3])
+    with pytest.raises(ValueError):
+        K.stack([None, None])
+    with pytest.raises(ValueError):
+        K.stack([tables[0], tables[0][:4]])
+
+
 def test_new_constants_of_fr_cuh():
     src = (ROOT / "gkr_tpu_torch" / "csrc" / "fr.cuh").read_text()
     for name, want in (("FR_ONE", R % P), ("FR_R2", R * R % P)):
@@ -281,6 +311,22 @@ def test_fused_layer_matches_host_engine(name):
     got = F.prove_layer_sumcheck_fused(z, w, ag, mg, kc, k, mle_struct(w),
                                        Mimc7(), device="cpu")
     assert no_launches()
+    assert got == want
+
+
+def test_fused_layer_takes_z_on_the_device():
+    """z given as (k_cur, 16) device limbs (`z_dev`) stands for the host
+    list z: the engine reads only the limbs."""
+    rng = np.random.default_rng(75)
+    k, kc = 4, 3
+    w = rand_field(rng, 1 << k)
+    ag = random_gates(rng, 10, 1 << kc, 1 << k)
+    mg = random_gates(rng, 7, 1 << kc, 1 << k)
+    z = rand_field(rng, kc)
+    want = jax_layer_sumcheck(z, w, ag, mg, kc, k, jax_mle_struct(w), JaxMimc7())
+    got = F.prove_layer_sumcheck_fused([], w, ag, mg, kc, k, mle_struct(w),
+                                       Mimc7(), z_dev=L.pack(z).reshape(kc, 16),
+                                       device="cpu")
     assert got == want
 
 

@@ -206,10 +206,11 @@ def test_wrappers_take_plain_versions_on_cpu():
     K.normalize(rel[0])
     K.normalize(rel[1], S[0, 0])
     K.eq_table(S[:2, 0])
+    K.stack([S[:, 0], None, S[:, 2]])
     assert set(K.LAUNCHES) == {
         "mont_mul", "fold", "phase1_eval", "phase2_eval", "phase1_partials",
         "phase2_partials", "round_coeffs", "mimc_multi", "eq_table",
-        "seg_sum", "normalize", "normalize_mul"}
+        "seg_sum", "normalize", "normalize_mul", "stack"}
     assert not any(K.LAUNCHES.values())
     assert K._lib is None
     with pytest.raises(ValueError):
