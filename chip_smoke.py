@@ -5,11 +5,16 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 Phases, each fatal on failure:
   1. card: name, power limit, SM clock, device count;
-  2. build: the CUDA kernels from gkr_tpu_torch/csrc with nvcc (sm_90a);
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the shapes of the path that runs it (n = 2^20; the wiring plans of
-     synth_circuit(20, 16); a bucket of 70,000 gates), random and edge
-     inputs, bit-equal; kernel and plain version timed with CUDA events,
+  2. build: the CUDA kernels from gkr_tpu_torch/csrc with nvcc (sm_90a), one
+     nvcc a source, all at once; the SASS counts of the probes (IMADs a
+     repetition of the peak chain, a Montgomery product of each variant);
+  3. kernels: the card's measured IMAD rate (the peak probe), which with the
+     SASS count sets every compute bound; then each kernel against its
+     plain PyTorch version on the card at the shapes of the path that runs
+     it (n = 2^20; the wiring plans of synth_circuit(20, 16); a bucket of
+     70,000 gates; the probes' (16, 2^20) words and 2^20 elements), random
+     and edge inputs, bit-equal (the f32 probe ops within a stated relative
+     tolerance); kernel and plain version timed with CUDA events,
      `index_add_` beside the segment sum, `torch.stack` beside the stack;
   4. per-round slice: prove(synth_circuit(20, 16)) with
      TorchBackend(fused=False), per-stage times, the port's verify, and the
@@ -19,6 +24,14 @@ Phases, each fatal on failure:
   6. card against CPU: synth_circuit(12, 10) proved on both with each
      engine, identical; a corrupted device challenge must make the fused
      layer's host check raise;
+  7. pipelined slice: prove_pipelined(synth_circuit(20, 16)): its proof
+     equals [5]'s, the port's verify accepts it, its launch counts are
+     [5]'s with one more `mimc_multi` (r*) and two more `mont_mul` (z-chain,
+     line points) a layer, and the walk makes exactly 2 host syncs
+     (torch.cuda.set_sync_debug_mode);
+  8. the port bench, gkr_tpu_torch.bench.main() at k = 20: its JSON line,
+     value > 0 and 0 < sol_vs_chip <= 1.05;
+  9. the probe commands `micro` and `tune` (gkr_tpu_torch.probes);
 then one JSON line of every kernel with its launches, time and bound.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it.  Imports nothing of jax or gkr_tpu.
@@ -27,16 +40,22 @@ before it.  Imports nothing of jax or gkr_tpu.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from gkr_tpu_torch.probes import event_ms
+
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+SMS = 132                        # streaming multiprocessors of an H100 SXM
 IMAD_PER_SM_CLOCK = 64           # 32-bit integer multiply-adds per SM per clock
-IMAD_PER_PRODUCT = 264           # fr.cuh CIOS: 128 32x32->64 products x 2 + 8
+FP32_PER_SM_CLOCK = 128          # fp32 multiplies or FMAs per SM per clock
+IMAD_PER_PRODUCT_MODEL = 264     # fr.cuh CIOS: 128 32x32->64 products x 2 + 8
 ELEM_BYTES = 64                  # one field element: 16 int32 limbs
 N = 1 << 20                      # the main path's table size
 DEVICE = "cuda"
@@ -63,6 +82,9 @@ EXPECTED_FUSED = {
     "phase1_eval": 0, "phase2_eval": 0,
 }
 LAUNCHES_FROM_PER_ROUND = ("phase1_eval", "phase2_eval")
+# The kernels line takes the other probes' launches from the path that runs them.
+LAUNCHES_FROM_PROBES = ("u32_mul_chain", "micro_op", "mont_chain_cios32",
+                        "mont_chain_school")
 
 
 def smi(fields: str, fmt: str = "csv,noheader") -> str:
@@ -76,21 +98,6 @@ def sync_time(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
-
-
-def event_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of fn() on the current stream, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # ------------------------------------------------------------ test inputs
@@ -122,7 +129,27 @@ def rand_field(rng, P: int) -> int:
 
 
 def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> float:
+    if x.is_floating_point():
+        return float((x - y).abs().max().item())
     return float((x.to(torch.int64) - y.to(torch.int64)).abs().max().item())
+
+
+def ptxas_report(log: str, demangle) -> dict:
+    """nvcc -Xptxas -v output -> {source: {kernel: (registers, spill-store
+    bytes)}}, the sources as `kernels.build` heads them ("== name")."""
+    out, source, name, spill = {}, None, None, 0
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+            out[source] = {}
+        elif "Function properties for" in line:
+            name = demangle(line.split("for", 1)[1].strip())
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and name and source:
+            out[source][name] = (int(line.split("Used")[1].split()[0]), spill)
+            name, spill = None, 0
+    return out
 
 
 # ------------------------------------------------------------ stage timer
@@ -158,39 +185,46 @@ def timed_backend(TorchBackend):
 
 # ------------------------------------------------------------------ phases
 
-def phase_kernels(K, L, P, R, sm_clock_hz):
-    """Each kernel against its plain version at the path's shapes."""
+def phase_kernels(K, L, P, R, sm_clock_hz, imad_rate, imad_per_product):
+    """Each kernel against its plain version at the path's shapes.  Compute
+    bounds take `imad_per_product` IMADs a Montgomery product (the SASS
+    count) at `imad_rate` IMADs a second (the card's)."""
     rng = np.random.default_rng(2024)
     dev = DEVICE
     edges = edge_values(P, R)
     pairs = [(x, y) for x in edges for y in edges]
-    imad_rate = 132 * IMAD_PER_SM_CLOCK * sm_clock_hz
     rows = []
 
-    def bound(nbytes, products, serial=False):
+    def bound(nbytes, products, serial=False, ops_ms=None):
         """Bytes at the memory rate against products at the card's IMAD
         rate, or, for one dependent chain (serial), at one thread's issue
-        rate of one IMAD a clock."""
+        rate of one IMAD a clock; `ops_ms` gives the operations' time
+        directly."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         rate = sm_clock_hz if serial else imad_rate
-        t_ops = products * IMAD_PER_PRODUCT / rate * 1e3
+        t_ops = products * imad_per_product / rate * 1e3 if ops_ms is None else ops_ms
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     def record(name, replaces, got, want, ms, plain_ms, nbytes, products,
-               library_ms=None, serial=False):
+               library_ms=None, serial=False, ops_ms=None,
+               source="gkr_tpu_torch/csrc/kernels.cu", rtol=None):
+        """Hold got to want (bit-equal, or within a relative `rtol` for
+        floats) and keep the kernel's row."""
         err = max_abs_err(got, want)
-        if not torch.equal(got, want):
+        same = (torch.equal(got, want) if rtol is None
+                else torch.allclose(got, want, rtol=rtol, atol=0))
+        if not same:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version (max abs limb error {err})")
-        b_ms, b_by = bound(nbytes, products, serial)
-        rows.append({"name": name, "route": "cuda",
-                     "source": "gkr_tpu_torch/csrc/kernels.cu",
+                                 f"version (max abs error {err})")
+        b_ms, b_by = bound(nbytes, products, serial, ops_ms)
+        rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": library_ms})
         lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
-        print(f"  {name:15s} bit-equal  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "
+        agree = "bit-equal" if rtol is None else f"within rtol {rtol:.1e}"
+        print(f"  {name:17s} {agree}  kernel {ms:.4f} ms  plain {plain_ms:.2f} ms  "
               f"bound {b_ms:.4f} ms ({b_by}){lib}", flush=True)
 
     # mont_mul at 2^20, every pair of edge values in the first rows
@@ -560,11 +594,173 @@ def phase_card_vs_cpu(F, prove, verify, TorchBackend, synth_circuit, mle_struct,
         raise AssertionError("a corrupted device challenge passed the host check")
 
 
+def phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass):
+    """The bench's three probe kernels against their plain versions at the
+    probes' shapes: (16, 2^20) u32 words, the same as i32/f32 words, 2^20
+    Montgomery elements with edge values in the first rows."""
+    dev = DEVICE
+    words = probes.ROWS * probes.COLS
+
+    # u32_mul_chain at both depths: bit-exact
+    a, b = probes.peak_inputs(dev)
+    for reps in K.CHAIN_REPS:
+        got, want = K.u32_mul_chain(a, b, reps), K.u32_mul_chain_plain(a, b, reps)
+        if not torch.equal(got, want):
+            raise AssertionError(f"u32_mul_chain reps={reps}: disagrees with its plain version")
+    reps = K.CHAIN_REPS[1]
+    record("u32_mul_chain", "bench.py:133", got, want,
+           event_ms(lambda: K.u32_mul_chain(a, b, reps), 10),
+           event_ms(lambda: K.u32_mul_chain_plain(a, b, reps), 1, 1),
+           3 * 4 * words, 0,
+           ops_ms=words * K.CHAINS * reps / imad_rate * 1e3,
+           source="gkr_tpu_torch/csrc/probes.cu")
+    print(f"    (reps {reps}; SASS: {sass['peak_imad_per_rep']:g} IMADs a repetition "
+          f"of the 8 chains)", flush=True)
+    del a, b, got, want
+
+    # micro_op: integer ops bit-exact at both depths; f32 within a relative
+    # reps * 2^-22 (the plain f32_fma rounds twice a step, the kernel once:
+    # at most 2^-23 relative a step, and earlier errors do not grow, since
+    # every term is positive)
+    row = None
+    for op in K.MICRO_OPS:
+        a, b = probes.micro_inputs(op, dev)
+        for reps in K.MICRO_REPS:
+            got, want = K.micro_op(op, a, b, reps), K.micro_op_plain(op, a, b, reps)
+            ok = (torch.allclose(got, want, rtol=reps * 2.0 ** -22, atol=0)
+                  if op.startswith("f32") else torch.equal(got, want))
+            if not ok:
+                raise AssertionError(f"micro_op {op} x {reps}: disagrees with its "
+                                     f"plain version (max abs error {max_abs_err(got, want)})")
+        reps = K.MICRO_REPS[0]
+        ms = event_ms(lambda: K.micro_op(op, a, b, reps), 20)
+        instr = sass[f"instr_per_rep_{op}"]
+        rate = fp32_rate if op.startswith("f32") else imad_rate
+        print(f"    micro_op {op:10s} x {reps}: {ms:.4f} ms, {instr:g} SASS "
+              f"instructions a repetition", flush=True)
+        if op == "u32_mul":
+            row = (K.micro_op(op, a, b, reps), K.micro_op_plain(op, a, b, reps), ms,
+                   event_ms(lambda: K.micro_op_plain(op, a, b, reps), 2, 1),
+                   words * reps * instr / rate * 1e3)
+    got, want, ms, plain_ms, ops_ms = row
+    record("micro_op", "scripts/micro_vpu.py:38", got, want, ms, plain_ms,
+           3 * 4 * words, 0, ops_ms=ops_ms, source="gkr_tpu_torch/csrc/probes.cu")
+    print("    (the row: u32_mul at 16 repetitions, scripts/micro_vpu.py's measurement)",
+          flush=True)
+    del a, b, got, want
+
+    # mont_chain, both variants, depths 1 and 9, every block width: bit-exact
+    a, b = probes.mont_inputs(dev)
+    edges = edge_values(P, R)
+    with_edges(a, [x for x in edges for _ in edges], L)
+    with_edges(b, [y for _ in edges for y in edges], L)
+    n = a.shape[0]
+    for variant in K.MONT_VARIANTS:
+        for depth in K.MONT_DEPTHS:
+            want = K.mont_chain_plain(a, b, depth)
+            for block in K.MONT_BLOCKS:
+                got = K.mont_chain(a, b, depth, variant, block)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"mont_chain {variant} depth {depth} block "
+                                         f"{block}: disagrees with its plain version")
+        host = L.unpack(got[:len(edges) ** 2], montgomery=False)
+        r_inv = pow(R, P - 2, P)
+        pairs = [(x, y) for x in edges for y in edges]
+        if host != [x * pow(y * r_inv, depth, P) % P for x, y in pairs]:
+            raise AssertionError(f"mont_chain {variant}: edge values differ from host ints")
+        imad = sass[f"imad_per_mont_mul_{variant}"]
+        record(f"mont_chain_{variant}", "scripts/tune_pallas_mul.py:92", got, want,
+               event_ms(lambda: K.mont_chain(a, b, depth, variant), 20),
+               event_ms(lambda: K.mont_chain_plain(a, b, depth), 1, 1),
+               3 * n * ELEM_BYTES, 0, ops_ms=depth * n * imad / imad_rate * 1e3,
+               source="gkr_tpu_torch/csrc/probes.cu")
+        print(f"    (depth {depth}, block 256; SASS: {imad:g} IMADs, "
+              f"{sass[f'instr_per_mont_mul_{variant}']:g} instructions a product)",
+              flush=True)
+    del a, b, got, want
+    torch.cuda.synchronize()
+
+
+def phase_pipelined(K, F, prove_pipelined, verify, backend, circuit, w, proof,
+                    fused_launches):
+    """prove_pipelined on the [5] backend: the proof against [5]'s, the
+    port's verify, its launch counts, and the host syncs of its walk."""
+    depth = circuit.depth()
+    expected = {**EXPECTED_FUSED, "mimc_multi": EXPECTED_FUSED["mimc_multi"] + depth,
+                "mont_mul": fused_launches["mont_mul"] + 2 * depth}
+    K.reset_launches()
+    pipe, dt = sync_time(lambda: prove_pipelined(circuit, w, backend=backend))
+    launches = dict(K.LAUNCHES)
+    print(f"  prove_pipelined (host clock with sync, plans cached): {dt:.3f} s",
+          flush=True)
+    print(f"  launches in this prove: {launches}", flush=True)
+    for name, want in expected.items():
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} launches, expected {want}")
+    if pipe != proof:
+        raise AssertionError("the pipelined proof differs from prove()'s")
+    t0 = time.perf_counter()
+    if not verify(pipe, circuit):
+        raise AssertionError("the port's verifier rejected the pipelined proof")
+    print(f"  equal to [5]'s proof; host verify {time.perf_counter() - t0:.3f} s -> True",
+          flush=True)
+
+    # the walk alone (no sparse forms), every synchronizing call recorded
+    downloads = F.DOWNLOADS
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            walk, dt_walk = sync_time(lambda: prove_pipelined(
+                circuit, w, backend=backend, materialize_sparse=False))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message) for c in caught
+             if "called a synchronizing CUDA operation" in str(c.message)]
+    print(f"  the walk without the sparse forms: {dt_walk:.3f} s, "
+          f"{len(syncs)} synchronizing calls, {F.DOWNLOADS - downloads} downloads",
+          flush=True)
+    if len(syncs) != 2 or F.DOWNLOADS - downloads != 2:
+        raise AssertionError(f"the pipelined walk synchronized {len(syncs)} times "
+                             f"({F.DOWNLOADS - downloads} downloads), not 2: {syncs[:4]}")
+    if walk.sumcheck_proofs != proof.sumcheck_proofs or walk.z != proof.z:
+        raise AssertionError("the walk without the sparse forms proves otherwise")
+    return launches, dt
+
+
+def phase_bench(K, bench):
+    """The port bench's main path at its default k = 20."""
+    os.environ.pop("GKR_BENCH_EXTRA", None)
+    os.environ.pop("GKR_BENCH_K", None)
+    K.reset_launches()
+    out, dt = sync_time(bench.main)
+    launches = dict(K.LAUNCHES)
+    roof = out["roofline"]
+    print(f"  bench.main: {dt:.1f} s; launches {launches}", flush=True)
+    if not out["value"] > 0:
+        raise AssertionError(f"bench value {out['value']}")
+    if roof is None or not 0 < roof["sol_vs_chip"] <= 1.05:
+        raise AssertionError(f"bench roofline {roof} ({out.get('roofline_reason')})")
+    return launches
+
+
+def phase_probe_paths(K, probes):
+    """The probe commands, each with the counters reset just before."""
+    launches = {}
+    for cmd in ("micro", "tune"):
+        K.reset_launches()
+        if probes.main([cmd]) != 0:
+            raise AssertionError(f"probes {cmd} failed")
+        launches.update({k: v for k, v in K.LAUNCHES.items() if v})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from gkr_tpu_torch import TorchBackend, prove, verify
+    from gkr_tpu_torch import TorchBackend, bench, probes, prove, prove_pipelined, verify
     from gkr_tpu_torch.circuit import synth_circuit
     from gkr_tpu_torch.field import P, R
     from gkr_tpu_torch.mimc import Mimc7
@@ -582,13 +778,25 @@ def main() -> int:
           f"torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"{kind} x {count}", flush=True)
 
-    print("[2] build", flush=True)
+    print("[2] build (one nvcc a source, all at once)", flush=True)
     t0 = time.perf_counter()
-    path = K.build()
-    print(f"  {path.name}: {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in K.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Function properties" in line:
-            print("  ptxas: " + line.strip(), flush=True)
+    paths = K.build()
+    print(f"  {', '.join(p.name for p in paths)}: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for source, kernels in ptxas_report(K.BUILD_LOG, probes._demangle).items():
+        regs = [r for r, _ in kernels.values()]
+        spills = {k: b for k, (_, b) in kernels.items() if b}
+        print(f"  ptxas, {source}: {len(kernels)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, spill stores {spills or 'none'}", flush=True)
+        if source == "kernels.cu":
+            print("    " + ", ".join(f"{k} {r}" for k, (r, _) in kernels.items()),
+                  flush=True)
+    sass = probes.probe_sass()
+    print(f"  SASS: {sass}", flush=True)
+    if sass["peak_imad_per_rep"] != K.CHAINS:
+        raise AssertionError(f"the peak chain issues {sass['peak_imad_per_rep']} IMADs "
+                             f"a repetition, not {K.CHAINS}: the compiler folded it")
+    imad_per_product = sass["imad_per_mont_mul_cios32"]
 
     t0 = time.perf_counter()
     circuit, inputs = synth_circuit(20, 16)
@@ -604,9 +812,22 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
     print("[3] kernels against their plain versions (tolerance: bit-exact, "
-          "max abs limb error 0)", flush=True)
-    rows, record, bound = phase_kernels(K, L, P, R, sm_clock_hz)
+          "max abs limb error 0, unless stated)", flush=True)
+    imad_peak = SMS * IMAD_PER_SM_CLOCK * sm_clock_hz
+    measured = probes.measure_vpu_peak() * 1e9
+    print(f"  IMAD rate: measured {measured / 1e12:.3f} T/s (peak probe, marginal), "
+          f"{SMS} SMs x {IMAD_PER_SM_CLOCK} x max SM clock = {imad_peak / 1e12:.3f} T/s",
+          flush=True)
+    if measured > 1.02 * imad_peak:
+        raise AssertionError("the measured IMAD rate exceeds the card's: a folded chain")
+    imad_rate = min(measured, imad_peak)
+    fp32_rate = SMS * FP32_PER_SM_CLOCK * sm_clock_hz
+    print(f"  bounds: {imad_per_product:g} IMADs a Montgomery product (SASS of fr_mul; "
+          f"model {IMAD_PER_PRODUCT_MODEL}) at {imad_rate / 1e12:.3f} T/s", flush=True)
+    rows, record, bound = phase_kernels(K, L, P, R, sm_clock_hz, imad_rate,
+                                        imad_per_product)
     phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit)
+    phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass)
 
     Timed = timed_backend(TorchBackend)
     print("[4] per-round slice: prove(synth_circuit(20, 16), "
@@ -636,15 +857,31 @@ def main() -> int:
     print(f"  fused prove {wall_f:.3f} s (plans built), {wall_warm:.3f} s "
           f"(cached), against per-round {wall_pr:.3f} s (host clock, this run)",
           flush=True)
-    del circuit, w, proof
 
     print("[6] card against CPU", flush=True)
     phase_card_vs_cpu(F, prove, verify, TorchBackend, synth_circuit, mle_struct,
                       prove_layer_sumcheck, Mimc7, P)
 
+    print("[7] pipelined slice: prove_pipelined(synth_circuit(20, 16))", flush=True)
+    _, wall_pipe = phase_pipelined(K, F, prove_pipelined, verify, backend, circuit,
+                                   w, proof, fused)
+    print(f"  pipelined prove {wall_pipe:.3f} s against the fused prove's "
+          f"{wall_warm:.3f} s, plans cached (host clock, this run)", flush=True)
+    del circuit, w, proof, backend
+
+    print("[8] the port bench: gkr_tpu_torch.bench.main(), k = 20", flush=True)
+    from_probes = phase_bench(K, bench)
+
+    print("[9] the probe commands: python -m gkr_tpu_torch.probes micro, tune",
+          flush=True)
+    from_probes.update(phase_probe_paths(K, probes))
+
     for row in rows:
-        src = per_round if row["name"] in LAUNCHES_FROM_PER_ROUND else fused
-        row["launches"] = src[row["name"]]
+        src = (per_round if row["name"] in LAUNCHES_FROM_PER_ROUND
+               else from_probes if row["name"] in LAUNCHES_FROM_PROBES else fused)
+        row["launches"] = src.get(row["name"], 0)
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']} was not launched on its path")
     print(json.dumps({"kernels": rows}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

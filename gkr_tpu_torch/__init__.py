@@ -13,13 +13,13 @@ from .field import P
 from .mimc import EthsnarksMimc, Mimc7
 from .proof import Proof
 from .prover import HostBackend, prove, prove_from_input
-from .torcheng.backend import TorchBackend
+from .torcheng.backend import TorchBackend, prove_pipelined
 from .verifier import VerifyError, verify
 
 __all__ = [
     "GateLayer", "GKRCircuit", "get_k", "P", "Mimc7", "EthsnarksMimc",
     "Proof", "prove", "prove_from_input", "verify", "VerifyError",
-    "HostBackend", "TorchBackend",
+    "HostBackend", "TorchBackend", "prove_pipelined",
 ]
 
 __version__ = "0.1.0"

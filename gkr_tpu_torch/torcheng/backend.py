@@ -1,20 +1,25 @@
 """TorchBackend: the prover's compute interface (layer sumcheck, MLE
-structure, line restriction, sparse forms) on torch tensors.
+structure, line restriction, sparse forms) on torch tensors, and
+`prove_pipelined`, the full prove with two host syncs.
 
-The port's counterpart of the JAX package's `JaxBackend`
-(`jaxeng/backend.py`).  Small tables (k <= host_threshold) go to the exact
-host engine: launch and sync latency dominate below ~2^10 entries."""
+The port's counterparts of the JAX package's `JaxBackend` and
+`prove_pipelined` (`jaxeng/backend.py`).  Small tables (k <=
+host_threshold) go to the exact host engine: launch and sync latency
+dominate below ~2^10 entries."""
 
 from __future__ import annotations
 
 import torch
 
 from ..field import interpolate
+from ..mimc import Mimc7
 from ..mle import (MleStruct, SparseMle, line, mle_struct, restrict_to_line,
                    sparse_from_dense)
-from ..sumcheck import prove_layer_sumcheck
+from ..proof import Proof
+from ..sumcheck import prove_layer_sumcheck, round_poly_len
+from . import kernels as K
 from . import limbs as L
-from .fused import LayerWiring, build_wiring, prove_layer_sumcheck_fused
+from .fused import LayerWiring, build_wiring, download, prove_layer_sumcheck_fused
 from .sumcheck import DEVICE_TAIL, prove_layer_sumcheck_torch
 
 
@@ -43,6 +48,13 @@ def _struct_scalars(C: torch.Tensor):
     pop = bits.sum(dim=0)
     maxdeg = torch.where(nz, pop, torch.zeros_like(pop)).max()
     return sup, maxdeg, nz.any()
+
+
+def _struct(k: int, sup, maxdeg, any_nz) -> MleStruct:
+    """The MleStruct of `_struct_scalars`' three values (on the host)."""
+    if not bool(any_nz):
+        return MleStruct(k, True, [False] * k, 0)
+    return MleStruct(k, False, [bool(x) for x in sup.tolist()], int(maxdeg))
 
 
 def _multi_point_fold(W: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -122,12 +134,8 @@ class TorchBackend:
         k = len(w_values).bit_length() - 1
         if self._use_host(k):
             return mle_struct(w_values)
-        sup, maxdeg, any_nz = _struct_scalars(
-            _mobius_dev(self.packed(layer_idx, w_values)))
-        if not bool(any_nz):
-            return MleStruct(k, True, [False] * k, 0)
-        return MleStruct(k, False, [bool(x) for x in sup.tolist()],
-                         int(maxdeg))
+        return _struct(k, *_struct_scalars(
+            _mobius_dev(self.packed(layer_idx, w_values))))
 
     def layer_sumcheck(self, z, w_next, add_gates, mult_gates,
                        k_cur, k_next, w_struct, transcript,
@@ -173,3 +181,112 @@ class TorchBackend:
         nz = (C != 0).any(dim=-1).nonzero().flatten()
         rows = L.redc(C[nz])                 # out of Montgomery form
         return SparseMle(k, nz.cpu().numpy(), rows.cpu().numpy().astype("uint32"))
+
+
+# ------------------------------------------------------- pipelined prover
+
+def _line_challenge(last: torch.Tensor, length: int) -> torch.Tensor:
+    """r* on the device: MiMC of the last round's 2 or 3 coefficients, the
+    rows of its (c2, c1, c0) the host proof keeps (`shape_coeffs`)."""
+    return K.mimc_multi(last[3 - length:])
+
+
+def prove_pipelined(circuit, w_values, transcript: Mimc7 | None = None,
+                    backend: TorchBackend | None = None, z0=None,
+                    materialize_sparse: bool = True) -> Proof:
+    """The full prove with every layer on the device and two host syncs,
+    the twin of the JAX package's `prove_pipelined`: the same `Proof` as
+    `prove()`.
+
+    Pass 1 packs every layer's table and reduces its Moebius table to the
+    struct scalars, then downloads them all at once (the host needs them to
+    fix each layer's round-length schedule).  Pass 2 enqueues every layer's
+    fused sumcheck with no sync: the z-chain z_{i+1} = b* + (c* - b*) r*
+    stays on the card, with r* the device MiMC of the last round's
+    coefficients, and so do the line points' evaluations of W~.  Then one
+    download of every layer's arrays; the host re-hashes every round and
+    every r*, checks the device z-chain against its own, and raises
+    RuntimeError on any divergence.  Every upload is asynchronous
+    (`limbs.upload`), so the two downloads are the walk's only syncs; the
+    sparse forms (`materialize_sparse`) come after it."""
+    if transcript is None:
+        transcript = Mimc7()
+    if backend is None:
+        backend = TorchBackend()
+    backend.reset_cache()
+    depth = circuit.depth()
+    assert len(w_values) == depth + 1
+    dev = backend.device
+
+    # pass 1: packed tables and their struct scalars, one download
+    packed = [backend.packed(i, w_values[i]) for i in range(1, depth + 1)]
+    scalars = download([x for t in packed
+                        for x in _struct_scalars(_mobius_dev(t))])
+    structs = [_struct(circuit.k(i + 1), *scalars[3 * i:3 * i + 3])
+               for i in range(depth)]
+
+    # pass 2: every layer enqueued, the z-chain on the device
+    k0 = circuit.k(0)
+    z0_host = list(z0) if z0 is not None else [0] * k0
+    z_dev = L.pack(z0_host, dev).reshape(k0, 16)
+    max_deg = max((s.maxdeg for s in structs if not s.empty), default=0)
+    t_rows = L.pack(list(range(max_deg + 1)), dev)
+    per_layer = []
+    for i, (layer, struct) in enumerate(zip(circuit.layers, structs)):
+        k_next = circuit.k(i + 1)
+        wiring = backend.wiring(i + 1, layer.add_gates, layer.mult_gates,
+                                1 << k_next)
+        arrays, finish = prove_layer_sumcheck_fused(
+            None, w_values[i + 1], layer.add_gates, layer.mult_gates,
+            layer.k_cur, k_next, struct, transcript, w_dev=packed[i],
+            wiring=wiring, defer=True, z_dev=z_dev)
+        _co1, co2, b_dev, c_dev = arrays
+        sup = struct.support if not struct.empty else [False] * k_next
+        ln_last = round_poly_len(2 * k_next, 2 * k_next, sup,
+                                 len(layer.add_gates) > 0,
+                                 len(layer.mult_gates) > 0)
+        r_star = _line_challenge(co2[-1], ln_last)
+        diff = L.sub_mod(c_dev, b_dev)
+        z_dev = L.add_mod(b_dev, L.mont_mul(diff, r_star.reshape(1, 16)))
+        # W~ on the line l(t) = b* + (c* - b*) t at t = 0..deg
+        extra = [r_star, z_dev]
+        if not struct.empty:
+            deg = struct.maxdeg
+            pts = L.add_mod(b_dev, L.mont_mul(
+                diff.expand(deg + 1, k_next, 16).contiguous(), t_rows[:deg + 1]))
+            extra.append(_multi_point_fold(packed[i], pts))
+        per_layer.append((arrays, extra, finish))
+
+    # one download for the whole proof, then the host's checks
+    host = iter(download([a for arrays, extra, _ in per_layer
+                          for a in (*arrays, *extra)]))
+    z_chain = [z0_host]
+    sumcheck_proofs, sumcheck_r, q, r_stars = [], [], [], []
+    for i, ((arrays, extra, finish), struct) in enumerate(zip(per_layer, structs)):
+        proof_i, chal_i = finish(tuple(next(host) for _ in arrays))
+        r_dev, z_next_dev = next(host), next(host)
+        k_next = circuit.k(i + 1)
+        r_star = transcript.multi_hash(proof_i[-1], 0)
+        if r_star != L.unpack_scalar(r_dev):
+            raise RuntimeError(f"device/host Fiat-Shamir divergence at layer {i} r*")
+        z_next = line(chal_i[:k_next], chal_i[k_next:], r_star)
+        if L.unpack(z_next_dev) != z_next:
+            raise RuntimeError(f"device/host z-chain divergence after layer {i}")
+        sumcheck_proofs.append(proof_i)
+        sumcheck_r.append(chal_i)
+        r_stars.append(r_star)
+        z_chain.append(z_next)
+        if struct.empty:
+            q.append([0])
+        else:
+            ys = L.unpack(next(host))
+            q.append(interpolate(list(zip(range(struct.maxdeg + 1), ys))))
+
+    if materialize_sparse:
+        d_sparse = backend.sparse_from_dense(w_values[0])
+        input_sparse = backend.sparse_from_dense(w_values[depth])
+    else:
+        d_sparse, input_sparse = [], []
+    return Proof(sumcheck_proofs=sumcheck_proofs, sumcheck_r=sumcheck_r,
+                 d=d_sparse, q=q, z=z_chain, r=r_stars, depth=depth + 1,
+                 input_func=input_sparse, k=circuit.k_list())

@@ -72,12 +72,9 @@ def _plan(cols: np.ndarray, key: int, n: int, device) -> PhasePlan:
     hib = np.cumsum(np.bincount(keys, minlength=n))
     other = cols[3 - key]           # right for key = left, left for key = right
 
-    def dev(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
-
-    return PhasePlan(dev(cols[0][perm], torch.int64),
-                     dev(other[perm], torch.int64),
-                     dev(hib, torch.int32))
+    return PhasePlan(L.upload(cols[0][perm], device),
+                     L.upload(other[perm], device),
+                     L.upload(hib.astype(np.int32), device))
 
 
 def build_wiring(add_gates, mult_gates, n: int, device="cpu") -> LayerWiring:
@@ -146,10 +143,17 @@ def _run_phase(S, sched, wb=None):
     return S, torch.stack(coeffs), torch.stack(rs)
 
 
+DOWNLOADS = 0                # calls of `download`: one host sync each
+
+
 def download(device_arrays):
-    """The layer's coefficients and challenges to the host in one copy."""
-    flat = torch.cat([a.reshape(-1, 16) for a in device_arrays]).cpu()
-    return tuple(torch.split(flat, [a.numel() // 16 for a in device_arrays]))
+    """Device arrays of int32 limbs or small integers (bools, counts) to the
+    host in one copy: a tuple of int32 tensors of the same shapes."""
+    global DOWNLOADS
+    DOWNLOADS += 1
+    flat = torch.cat([a.reshape(-1).to(torch.int32) for a in device_arrays]).cpu()
+    parts = torch.split(flat, [a.numel() for a in device_arrays])
+    return tuple(t.reshape(a.shape) for t, a in zip(parts, device_arrays))
 
 
 def prove_layer_sumcheck_fused(

@@ -1,14 +1,17 @@
-"""The layer sumcheck's CUDA kernels, with their plain versions.
+"""The layer sumcheck's CUDA kernels and the bench's probe kernels, with
+their plain versions.
 
-Each wrapper takes int32 limb tensors (see `limbs`).  For a tensor on the
-CPU it runs the plain PyTorch version beside it; for a CUDA tensor it
-launches the kernel from `csrc/kernels.cu` or raises -- there is no
-fallback.  Each launch adds one to `LAUNCHES[name]`.
+Each prover wrapper takes int32 limb tensors (see `limbs`); the probe
+wrappers (`u32_mul_chain`, `micro_op`, `mont_chain`, at the end) take 32-bit
+words.  For a tensor on the CPU a wrapper runs the plain PyTorch version
+beside it; for a CUDA tensor it launches the kernel from `csrc/kernels.cu`
+or `csrc/probes.cu` or raises -- there is no fallback.  Each launch adds one
+to `LAUNCHES[name]`.
 
 The kernels are compiled from the sources in the checkout at first use
-(`nvcc` for sm_90a into a plain-C shared library, loaded with ctypes), into
-`_build/` beside this package, keyed by a hash of the sources.  Importing
-this module needs neither `nvcc` nor a card.
+(`nvcc` for sm_90a into one plain-C shared library a .cu file, loaded with
+ctypes), into `_build/` beside this package, keyed by a hash of the
+sources.  Importing this module needs neither `nvcc` nor a card.
 
 Bounds below are for one H100 SXM (3.35 TB/s; 132 SMs x 64 32-bit IMAD per
 clock) at the layer engines' shapes, n = 2^20 entries, 64 B an element.
@@ -41,16 +44,41 @@ MIMC_ROUNDS = 91             # the device MiMC's constant table
 LAUNCHES = {"mont_mul": 0, "fold": 0, "phase1_eval": 0, "phase2_eval": 0,
             "phase1_partials": 0, "phase2_partials": 0, "round_coeffs": 0,
             "mimc_multi": 0, "eq_table": 0, "seg_sum": 0, "normalize": 0,
-            "normalize_mul": 0, "stack": 0}
+            "normalize_mul": 0, "stack": 0, "u32_mul_chain": 0, "micro_op": 0,
+            "mont_chain_cios32": 0, "mont_chain_school": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("fr.cuh", "kernels.cu")
+# The .cu sources, one shared library each (both include fr.cuh): the
+# prover's kernels and the bench's probes, one nvcc each, side by side.
+SOURCES = ("kernels.cu", "probes.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib = None
+_lib = None                  # the prover's kernels (kernels.cu), once loaded
+_probe_lib = None            # the probes (probes.cu), once loaded
 BUILD_LOG = ""
+
+_SIGNATURES = {
+    "kernels.cu": {
+        "gkr_mont_mul": "vvvllv",
+        "gkr_fold": "vvvlv",
+        "gkr_phase1_partials": "vvliv",
+        "gkr_phase2_partials": "vvvliv",
+        "gkr_eq_double": "vvlv",
+        "gkr_seg_sum": "vvvvliv",
+        "gkr_normalize": "vivvlv",
+        "gkr_round_coeffs": "vivv",
+        "gkr_mimc_multi": "vivivv",
+        "gkr_stack": "vvvvivlv",
+    },
+    "probes.cu": {
+        "gkr_u32_mul_chain": "vvvliv",
+        "gkr_micro_op": "vvvliiv",
+        "gkr_mont_chain": "vvvliiiv",
+    },
+}
+_CTYPES = {"v": ctypes.c_void_p, "l": ctypes.c_longlong, "i": ctypes.c_int}
 
 
 def reset_launches() -> None:
@@ -68,56 +96,71 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> Path:
+def library_path(source: str = "kernels.cu") -> Path:
+    """The shared library of one .cu file, keyed by a hash of the flags, the
+    shared header and the source."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in ("fr.cuh", source):
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libgkrfr-{h.hexdigest()[:16]}.so"
+    stem = "libgkrfr" if source == "kernels.cu" else "libgkrprobes"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile csrc/ into the shared library unless it is already built.
-    Raises on a failed build; the compiler's report lands in BUILD_LOG."""
+def build(sources=SOURCES) -> list[Path]:
+    """Compile each .cu file of `sources` into its shared library unless it
+    is already built, all nvcc processes at once.  Raises on a failed
+    build; the compilers' reports land in BUILD_LOG."""
     global BUILD_LOG
-    out = library_path()
-    if out.exists():
-        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / "kernels.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, out)
-    return out
+    jobs = []
+    for src in sources:
+        out = library_path(src)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / src)]
+        jobs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, out, tmp, proc in jobs:
+        log = proc.communicate()[0]
+        logs.append(f"== {src}\n{log}")
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{src} ({proc.returncode})")
+        else:
+            os.replace(tmp, out)
+    if jobs:
+        BUILD_LOG = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{BUILD_LOG}")
+    return [library_path(src) for src in sources]
+
+
+def _open(source: str):
+    lib = ctypes.CDLL(str(build((source,))[0]))
+    for name, sig in _SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_CTYPES[c] for c in sig]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _load():
+    """The prover's kernels, built and loaded at first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        signatures = {
-            "gkr_mont_mul": [vp, vp, vp, ll, ll, vp],
-            "gkr_fold": [vp, vp, vp, ll, vp],
-            "gkr_phase1_partials": [vp, vp, ll, i, vp],
-            "gkr_phase2_partials": [vp, vp, vp, ll, i, vp],
-            "gkr_eq_double": [vp, vp, ll, vp],
-            "gkr_seg_sum": [vp, vp, vp, vp, ll, i, vp],
-            "gkr_normalize": [vp, i, vp, vp, ll, vp],
-            "gkr_round_coeffs": [vp, i, vp, vp],
-            "gkr_mimc_multi": [vp, i, vp, i, vp, vp],
-            "gkr_stack": [vp, vp, vp, vp, i, vp, ll, vp],
-        }
-        for name, args in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _open("kernels.cu")
     return _lib
+
+
+def _load_probes():
+    """The bench's probe kernels, built and loaded at first use."""
+    global _probe_lib
+    if _probe_lib is None:
+        _probe_lib = _open("probes.cu")
+    return _probe_lib
 
 
 def _check_limbs(*ts: torch.Tensor) -> torch.device:
@@ -599,4 +642,173 @@ def stack(tables) -> torch.Tensor:
         srcs = [None if t is None else _ptr(t) for t in tables]
         srcs += [None] * (4 - len(srcs))
         _launch("stack", dev, _load().gkr_stack, *srcs, len(tables), _ptr(out), n)
+    return out
+
+
+# =================================================================== probes
+# The port bench's probes (csrc/probes.cu).  They take 32-bit words: int32
+# tensors holding u32 (or i32) bit patterns, float32 for the f32 ops.  On
+# the CPU this torch refuses uint32 arithmetic, so the plain versions compute
+# in int64 and keep the low 32 bits.
+
+U32 = 0xFFFFFFFF
+CHAINS = 8                       # independent accumulators of u32_mul_chain
+CHAIN_REPS = (16, 128)           # the peak probe's two depths (bench.py)
+MICRO_OPS = ("u32_add", "u32_mul", "u32_mul16", "u32_shift", "i32_mul",
+             "f32_mul", "f32_fma")
+MICRO_REPS = (16, 272, 1040)     # scripts/micro_vpu.py's REPS; two deep runs
+MONT_VARIANTS = ("cios32", "school")
+MONT_DEPTHS = (1, 9)             # scripts/tune_pallas_mul.py's lo and hi depth
+MONT_BLOCKS = (128, 256, 512, 1024)
+
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 values in [0, 2^32)."""
+    return t.to(torch.int64) & U32
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 tensor of the same bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def _mul32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x * y mod 2^32 of int64 values in [0, 2^32), without an int64
+    overflow: the high halves' cross products only reach bits 16..31."""
+    xl, yl = x & 0xFFFF, y & 0xFFFF
+    cross = ((x >> 16) * yl + xl * (y >> 16)) & 0xFFFF
+    return (xl * yl + (cross << 16)) & U32
+
+
+def _check_words(a: torch.Tensor, b: torch.Tensor, dtype=torch.int32) -> torch.device:
+    if a.dtype != dtype or b.dtype != dtype or a.shape != b.shape:
+        raise ValueError(f"expected two {dtype} tensors of one shape, got "
+                         f"{a.dtype} {tuple(a.shape)} and {b.dtype} {tuple(b.shape)}")
+    if a.device != b.device or a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"tensors on {a.device} and {b.device}")
+    return a.device
+
+
+# ------------------------------------------------------------ u32 peak probe
+# Replaces bench.py `_measure_vpu_peak` (:133, pallas_call :164).  Each
+# element runs 8 independent accumulators acc_c = a + c, then `reps`
+# products acc_c *= b, and writes their sum, all mod 2^32.  Bound at
+# (16, 2^20) words: 201 MB moved = 60 us, against 2^24 * 8 * reps IMAD at
+# 132 SMs x 64 a clock x 1.98 GHz = 16.7 T/s: 0.13 ms at reps = 16, 1.03 ms
+# at 128: operations bind.  Its marginal rate between the two depths is the
+# card's measured IMAD rate, the bench's compute anchor.  The products are
+# inline PTX so that the compiler cannot fold the chain (see probes.cu).
+
+def u32_mul_chain_plain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
+    x, y = _u32(a), _u32(b)
+    accs = [(x + c) & U32 for c in range(CHAINS)]
+    for _ in range(reps):
+        accs = [_mul32(acc, y) for acc in accs]
+    return _as_i32(sum(accs) & U32)
+
+
+def u32_mul_chain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
+    """sum over c < 8 of (a + c) * b^reps mod 2^32, elementwise, of u32
+    words held in int32 tensors; reps is 16 or 128."""
+    dev = _check_words(a, b)
+    if reps not in CHAIN_REPS:
+        raise ValueError(f"u32_mul_chain reps {reps} not in {CHAIN_REPS}")
+    if dev.type == "cpu":
+        return u32_mul_chain_plain(a, b, reps)
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    if a.numel():
+        _launch("u32_mul_chain", dev, _load_probes().gkr_u32_mul_chain,
+                _ptr(a), _ptr(b), _ptr(out), a.numel(), reps)
+    return out
+
+
+# ------------------------------------------------------------ per-op probe
+# Replaces scripts/micro_vpu.py `make_bench` (:38, pallas_call :65): acc =
+# a, then REPS times acc = op(acc, b), elementwise.  One kernel template,
+# one instantiation an op and depth.  Bound at (16, 2^20) words and
+# REPS = 16: 201 MB = 60 us against 2^28 ops (at most 3 instructions each,
+# 64 int32 or 128 fp32 a clock per SM: <= 48 us): bytes bind; at 272 and
+# 1040 repetitions the instructions bind, so the marginal time between
+# those two is the op's cost (between 16 and a deep run it is not: at 16
+# the memory traffic hides the instructions).  The integer ops are inline PTX (no
+# folding), f32_mul a rounded multiply (never contracted into an FMA),
+# f32_fma one `fmaf`.  The plain f32_fma rounds twice a step (multiply,
+# then add), the kernel once, so f32 results are compared with a relative
+# tolerance.
+
+def micro_op_plain(op: str, a: torch.Tensor, b: torch.Tensor,
+                   reps: int = 16) -> torch.Tensor:
+    if op.startswith("f32"):
+        acc = a
+        for _ in range(reps):
+            acc = acc * b if op == "f32_mul" else acc * b + a
+        return acc
+    acc, y = _u32(a), _u32(b)
+    for _ in range(reps):
+        if op == "u32_add":
+            acc = (acc + y) & U32
+        elif op in ("u32_mul", "i32_mul"):     # the same low 32 bits
+            acc = _mul32(acc, y)
+        elif op == "u32_mul16":
+            acc = (acc & 0xFFFF) * (y & 0xFFFF)
+        else:                                   # u32_shift
+            acc = ((acc >> 16) + y) & U32
+    return _as_i32(acc)
+
+
+def micro_op(op: str, a: torch.Tensor, b: torch.Tensor, reps: int = 16) -> torch.Tensor:
+    """`reps` times acc = op(acc, b) from acc = a, elementwise: u32 and i32
+    words in int32 tensors, f32 in float32 ones; reps is 16, 272 or 1040."""
+    if op not in MICRO_OPS or reps not in MICRO_REPS:
+        raise ValueError(f"micro_op {op!r} x {reps}: ops {MICRO_OPS}, reps {MICRO_REPS}")
+    dev = _check_words(a, b, torch.float32 if op.startswith("f32") else torch.int32)
+    if dev.type == "cpu":
+        return micro_op_plain(op, a, b, reps)
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    if a.numel():
+        _launch("micro_op", dev, _load_probes().gkr_micro_op, _ptr(a), _ptr(b),
+                _ptr(out), a.numel(), MICRO_OPS.index(op), reps)
+    return out
+
+
+# -------------------------------------------------------- Montgomery chain
+# Replaces scripts/tune_pallas_mul.py `build` (:92, pallas_call :97) with
+# the kernels of `make_kernel` (:78): x = x * b / R, `depth` times, per
+# element.  Two variants of the port's own product, chosen for this card:
+# "cios32", `fr_mul` (fr.cuh), the production one; "school", the full 8 x 8
+# word product and then `fr_redc_wide`.  Block widths 128 to 1024 threads
+# are template instantiations (`__launch_bounds__` sets the register budget
+# as a Pallas block width would).  Bound at 2^20 elements: 201 MB = 60 us,
+# against depth * 2^20 * 264 IMAD at 16.7 T/s = depth * 16.6 us: bytes bind
+# at depth 1, operations at depth 9.  The probe's marginal time between
+# depths 1 and 9 is the product's cost without the memory traffic.
+
+def mont_chain_plain(a: torch.Tensor, b: torch.Tensor, depth: int) -> torch.Tensor:
+    x = a
+    for _ in range(depth):
+        x = mont_mul_plain(x, b)
+    return x
+
+
+def mont_chain(a: torch.Tensor, b: torch.Tensor, depth: int,
+               variant: str = "cios32", block: int = THREADS) -> torch.Tensor:
+    """x = a, then `depth` times x = x * b / R mod p, elementwise over
+    (n, 16) canonical limbs; depth 1 or 9, variant "cios32" or "school",
+    block 128 to 1024 threads."""
+    dev = _check_limbs(a, b)
+    if (a.shape != b.shape or variant not in MONT_VARIANTS
+            or depth not in MONT_DEPTHS or block not in MONT_BLOCKS):
+        raise ValueError(f"mont_chain {variant} depth {depth} block {block} of "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if dev.type == "cpu":
+        return mont_chain_plain(a, b, depth)
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    n = a.numel() // N_LIMBS
+    if n:
+        _launch(f"mont_chain_{variant}", dev, _load_probes().gkr_mont_chain,
+                _ptr(a), _ptr(b), _ptr(out), n, MONT_VARIANTS.index(variant),
+                depth, block)
     return out

@@ -43,10 +43,22 @@ MONT_ONE_LIMBS = _int_to_limbs(R % P)          # 1 in Montgomery form
 INV2_LIMBS = _int_to_limbs(pow(2, P - 2, P) * R % P)   # 1/2, Montgomery
 
 
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device`.  To a card the copy goes
+    through pinned memory, asynchronously on the current stream, so it never
+    waits for the work queued before it (a pageable copy synchronises)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 @lru_cache(maxsize=None)
 def _const(name: str, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """A (16,) constant limb row on `device` (cached: one upload each)."""
-    return torch.tensor(globals()[name], dtype=dtype, device=device)
+    np_dtype = np.int64 if dtype == torch.int64 else np.int32
+    return upload(np.array(globals()[name], dtype=np_dtype), device)
 
 
 def const(name: str, device, dtype=LIMB_DTYPE) -> torch.Tensor:
@@ -73,10 +85,9 @@ def pack(values, device="cpu") -> torch.Tensor:
     modmul per element) and multiply by R^2 on the device instead:
     v * R2 / R = v * R mod p, bit-identical."""
     if len(values) >= PACK_DEVICE_MIN:
-        raw = torch.from_numpy(canonical_limbs(values)).to(device)
+        raw = upload(canonical_limbs(values), device)
         return mont_mul(raw, const("R2_LIMBS", raw.device))
-    return torch.from_numpy(
-        canonical_limbs([int(v) % P * R % P for v in values])).to(device)
+    return upload(canonical_limbs([int(v) % P * R % P for v in values]), device)
 
 
 def pack_scalar(v: int, device="cpu") -> torch.Tensor:
@@ -145,15 +156,14 @@ def sub_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def conv_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook product of two 16-limb values as 32 relaxed int64 columns
-    (each < 2^21).  Forms the (..., 16, 16) partial products: CPU-sized
-    batches only (2 GiB at 2^20 rows)."""
+    (each a sum of at most 16 products below 2^32: < 2^36).  Forms the
+    (..., 16, 16) partial products: CPU-sized batches only (2 GiB at 2^20
+    rows)."""
     p = a.to(torch.int64).unsqueeze(-1) * b.to(torch.int64).unsqueeze(-2)
-    lo, hi = p & MASK, p >> 16
     cols = torch.zeros(p.shape[:-2] + (WIDE,), dtype=torch.int64,
                        device=p.device)
     for i in range(N_LIMBS):
-        cols[..., i:i + N_LIMBS] += lo[..., i, :]
-        cols[..., i + 1:i + 1 + N_LIMBS] += hi[..., i, :]
+        cols[..., i:i + N_LIMBS] += p[..., i, :]
     return cols
 
 
@@ -162,24 +172,19 @@ def redc(t: torch.Tensor) -> torch.Tensor:
     16 int32 limbs of t / R mod p.
 
     Contract: value < p * 2^256 and every limb < 2^40 (int64 keeps every
-    intermediate exact).  Limb i is consumed at step i: its low 16 bits are
-    cancelled by m*p and its high part carried into limb i+1."""
+    intermediate exact: 16 steps add at most 16 products below 2^32 and the
+    carries to a limb, so every limb stays below 2^41).  Limb i is consumed
+    at step i: m*p, added at limbs i..i+15, cancels its low 16 bits, and its
+    high part is carried into limb i+1."""
     src = t
     t = torch.zeros(src.shape[:-1] + (WIDE,), dtype=torch.int64,
                     device=src.device)
     t[..., :src.shape[-1]] = src
     p_limbs = const("P_LIMBS", t.device, torch.int64)
     for i in range(N_LIMBS):
-        ti_full = t[..., i]
-        c = ti_full >> 16
-        ti = ti_full & MASK
-        m = (ti * NPRIME16) & MASK
-        mp = m.unsqueeze(-1) * p_limbs            # (..., 16), < 2^32
-        lo, hi = mp & MASK, mp >> 16
-        # low 16 bits of (ti + lo[0]) are 0 by construction of m
-        t[..., i + 1] += ((ti + lo[..., 0]) >> 16) + c
-        t[..., i + 1:i + N_LIMBS] += lo[..., 1:]
-        t[..., i + 1:i + 1 + N_LIMBS] += hi
+        m = ((t[..., i] & MASK) * NPRIME16) & MASK
+        t[..., i:i + N_LIMBS] += m.unsqueeze(-1) * p_limbs   # products < 2^32
+        t[..., i + 1] += t[..., i] >> 16                     # low 16 bits are 0
     return cond_sub_p(carry_canonical(t[..., N_LIMBS:])).to(LIMB_DTYPE)
 
 

@@ -207,12 +207,19 @@ def test_wrappers_take_plain_versions_on_cpu():
     K.normalize(rel[1], S[0, 0])
     K.eq_table(S[:2, 0])
     K.stack([S[:, 0], None, S[:, 2]])
+    words = S[:, :, 0].contiguous()
+    K.u32_mul_chain(words, words, 16)
+    K.micro_op("u32_mul", words, words)
+    K.micro_op("f32_fma", words.float(), words.float())
+    for variant in K.MONT_VARIANTS:
+        K.mont_chain(S[:, 0], S[:, 1], 1, variant)
     assert set(K.LAUNCHES) == {
         "mont_mul", "fold", "phase1_eval", "phase2_eval", "phase1_partials",
         "phase2_partials", "round_coeffs", "mimc_multi", "eq_table",
-        "seg_sum", "normalize", "normalize_mul", "stack"}
+        "seg_sum", "normalize", "normalize_mul", "stack", "u32_mul_chain",
+        "micro_op", "mont_chain_cios32", "mont_chain_school"}
     assert not any(K.LAUNCHES.values())
-    assert K._lib is None
+    assert K._lib is None and K._probe_lib is None
     with pytest.raises(ValueError):
         K.mont_mul(S.to(torch.int64), S.to(torch.int64))
     with pytest.raises(ValueError):

@@ -149,9 +149,10 @@ def test_fused_engine_is_the_default():
 def test_import_leaves_jax_and_gkr_tpu_out():
     code = ("import sys, gkr_tpu_torch, gkr_tpu_torch.convert, "
             "gkr_tpu_torch.torcheng.kernels, gkr_tpu_torch.torcheng.backend, "
-            "gkr_tpu_torch.torcheng.fused\n"
+            "gkr_tpu_torch.torcheng.fused, gkr_tpu_torch.bench, "
+            "gkr_tpu_torch.probes\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'gkr_tpu')]\n"
+            "('jax', 'jaxlib', 'gkr_tpu', 'bench', 'scripts')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env,
@@ -159,11 +160,14 @@ def test_import_leaves_jax_and_gkr_tpu_out():
 
 
 def test_sources_import_no_jax_or_gkr_tpu():
+    """No module of the port, nor chip_smoke.py, imports jax, gkr_tpu, the
+    JAX bench (bench.py) or its scripts."""
     files = sorted((ROOT / "gkr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gkr_tpu)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gkr_tpu|bench|scripts)\b", re.M)
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pat.search(f.read_text())]
     assert len(files) > 10
+    assert {"bench.py", "probes.py"} <= {f.name for f in files}
     assert offenders == []
 
 
