@@ -4,12 +4,14 @@
 Run from the root of the repository:  python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. card: name, power limit, SM clock, device count;
-  2. build: the CUDA kernels from gkr_tpu_torch/csrc with nvcc (sm_90a), one
-     nvcc a source, all at once; the SASS counts of the probes (IMADs a
-     repetition of the peak chain, a Montgomery product of each variant);
-  3. kernels: the card's measured IMAD rate (the peak probe), which with the
-     SASS count sets every compute bound; then each kernel against its
+  1. card: name, power limit, SM clock (nvidia-smi's max and a spin's
+     reading; the peaks take the larger), device count;
+  2. build: the CUDA kernels from gkr_tpu_torch/csrc with one nvcc (sm_90a);
+     the SASS counts of the probes (IMADs a repetition of the peak chain, a
+     Montgomery product of each variant, moves left out);
+  3. kernels: the card's IMAD rate as the peak probe reads it, beside the
+     card's peak (SMs x 64 x the peak SM clock), which with the least SASS count
+     of a Montgomery product sets every compute bound; then each kernel against its
      plain PyTorch version on the card at the shapes of the path that runs
      it (n = 2^20; the wiring plans of synth_circuit(20, 16); a bucket of
      70,000 gates; the probes' (16, 2^20) words and 2^20 elements), random
@@ -49,12 +51,11 @@ import warnings
 import numpy as np
 import torch
 
-from gkr_tpu_torch.probes import event_ms
+from gkr_tpu_torch.probes import (FP32_PER_SM_CLOCK, IMAD_PER_SM_CLOCK, event_ms,
+                                  max_sm_clock_hz, peak_clock_hz, peak_per_s,
+                                  spin_clock_hz)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-SMS = 132                        # streaming multiprocessors of an H100 SXM
-IMAD_PER_SM_CLOCK = 64           # 32-bit integer multiply-adds per SM per clock
-FP32_PER_SM_CLOCK = 128          # fp32 multiplies or FMAs per SM per clock
 IMAD_PER_PRODUCT_MODEL = 264     # fr.cuh CIOS: 128 32x32->64 products x 2 + 8
 ELEM_BYTES = 64                  # one field element: 16 int32 limbs
 N = 1 << 20                      # the main path's table size
@@ -134,24 +135,6 @@ def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> float:
     return float((x.to(torch.int64) - y.to(torch.int64)).abs().max().item())
 
 
-def ptxas_report(log: str, demangle) -> dict:
-    """nvcc -Xptxas -v output -> {source: {kernel: (registers, spill-store
-    bytes)}}, the sources as `kernels.build` heads them ("== name")."""
-    out, source, name, spill = {}, None, None, 0
-    for line in log.splitlines():
-        if line.startswith("== "):
-            source = line[3:].strip()
-            out[source] = {}
-        elif "Function properties for" in line:
-            name = demangle(line.split("for", 1)[1].strip())
-        elif "spill stores" in line:
-            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
-        elif "Used" in line and "registers" in line and name and source:
-            out[source][name] = (int(line.split("Used")[1].split()[0]), spill)
-            name, spill = None, 0
-    return out
-
-
 # ------------------------------------------------------------ stage timer
 
 def timed_backend(TorchBackend):
@@ -187,8 +170,8 @@ def timed_backend(TorchBackend):
 
 def phase_kernels(K, L, P, R, sm_clock_hz, imad_rate, imad_per_product):
     """Each kernel against its plain version at the path's shapes.  Compute
-    bounds take `imad_per_product` IMADs a Montgomery product (the SASS
-    count) at `imad_rate` IMADs a second (the card's)."""
+    bounds take `imad_per_product` IMADs a Montgomery product (the least
+    SASS count) at `imad_rate` IMADs a second (the card's peak)."""
     rng = np.random.default_rng(2024)
     dev = DEVICE
     edges = edge_values(P, R)
@@ -197,7 +180,7 @@ def phase_kernels(K, L, P, R, sm_clock_hz, imad_rate, imad_per_product):
 
     def bound(nbytes, products, serial=False, ops_ms=None):
         """Bytes at the memory rate against products at the card's IMAD
-        rate, or, for one dependent chain (serial), at one thread's issue
+        peak, or, for one dependent chain (serial), at one thread's issue
         rate of one IMAD a clock; `ops_ms` gives the operations' time
         directly."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -597,7 +580,8 @@ def phase_card_vs_cpu(F, prove, verify, TorchBackend, synth_circuit, mle_struct,
 def phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass):
     """The bench's three probe kernels against their plain versions at the
     probes' shapes: (16, 2^20) u32 words, the same as i32/f32 words, 2^20
-    Montgomery elements with edge values in the first rows."""
+    Montgomery elements with edge values in the first rows.  Both
+    Montgomery variants are bound by one count a product, the least."""
     dev = DEVICE
     words = probes.ROWS * probes.COLS
 
@@ -668,13 +652,12 @@ def phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass):
         pairs = [(x, y) for x in edges for y in edges]
         if host != [x * pow(y * r_inv, depth, P) % P for x, y in pairs]:
             raise AssertionError(f"mont_chain {variant}: edge values differ from host ints")
-        imad = sass[f"imad_per_mont_mul_{variant}"]
         record(f"mont_chain_{variant}", "scripts/tune_pallas_mul.py:92", got, want,
                event_ms(lambda: K.mont_chain(a, b, depth, variant), 20),
                event_ms(lambda: K.mont_chain_plain(a, b, depth), 1, 1),
-               3 * n * ELEM_BYTES, 0, ops_ms=depth * n * imad / imad_rate * 1e3,
-               source="gkr_tpu_torch/csrc/probes.cu")
-        print(f"    (depth {depth}, block 256; SASS: {imad:g} IMADs, "
+               3 * n * ELEM_BYTES, depth * n, source="gkr_tpu_torch/csrc/probes.cu")
+        print(f"    (depth {depth}, block 256; SASS: "
+              f"{sass[f'imad_per_mont_mul_{variant}']:g} IMADs without moves, "
               f"{sass[f'instr_per_mont_mul_{variant}']:g} instructions a product)",
               flush=True)
     del a, b, got, want
@@ -732,7 +715,6 @@ def phase_pipelined(K, F, prove_pipelined, verify, backend, circuit, w, proof,
 def phase_bench(K, bench):
     """The port bench's main path at its default k = 20."""
     os.environ.pop("GKR_BENCH_EXTRA", None)
-    os.environ.pop("GKR_BENCH_K", None)
     K.reset_launches()
     out, dt = sync_time(bench.main)
     launches = dict(K.LAUNCHES)
@@ -771,32 +753,28 @@ def main() -> int:
     from gkr_tpu_torch.torcheng import limbs as L
 
     name_power = smi("name,power.limit")
-    sm_clock_hz = float(smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
+    sm_clock_hz = peak_clock_hz()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    print(f"[1] card: {name_power}; max SM clock {sm_clock_hz / 1e6:.0f} MHz; "
+    print(f"[1] card: {name_power}; max SM clock {max_sm_clock_hz() / 1e6:.0f} MHz, "
+          f"a spin reads {spin_clock_hz()[0] / 1e6:.1f} MHz: peaks at "
+          f"{sm_clock_hz / 1e6:.1f} MHz; "
           f"torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"{kind} x {count}", flush=True)
 
-    print("[2] build (one nvcc a source, all at once)", flush=True)
+    print("[2] build", flush=True)
     t0 = time.perf_counter()
-    paths = K.build()
-    print(f"  {', '.join(p.name for p in paths)}: {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for source, kernels in ptxas_report(K.BUILD_LOG, probes._demangle).items():
-        regs = [r for r, _ in kernels.values()]
-        spills = {k: b for k, (_, b) in kernels.items() if b}
-        print(f"  ptxas, {source}: {len(kernels)} kernels, {min(regs)}-{max(regs)} "
-              f"registers, spill stores {spills or 'none'}", flush=True)
-        if source == "kernels.cu":
-            print("    " + ", ".join(f"{k} {r}" for k, (r, _) in kernels.items()),
-                  flush=True)
+    path = K.build()
+    print(f"  {path.name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    for line in K.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "Function properties" in line:
+            print("  ptxas: " + line.strip(), flush=True)
     sass = probes.probe_sass()
     print(f"  SASS: {sass}", flush=True)
     if sass["peak_imad_per_rep"] != K.CHAINS:
         raise AssertionError(f"the peak chain issues {sass['peak_imad_per_rep']} IMADs "
                              f"a repetition, not {K.CHAINS}: the compiler folded it")
-    imad_per_product = sass["imad_per_mont_mul_cios32"]
+    imad_per_product = sass["imad_per_mont_mul"]
 
     t0 = time.perf_counter()
     circuit, inputs = synth_circuit(20, 16)
@@ -813,17 +791,16 @@ def main() -> int:
 
     print("[3] kernels against their plain versions (tolerance: bit-exact, "
           "max abs limb error 0, unless stated)", flush=True)
-    imad_peak = SMS * IMAD_PER_SM_CLOCK * sm_clock_hz
-    measured = probes.measure_vpu_peak() * 1e9
-    print(f"  IMAD rate: measured {measured / 1e12:.3f} T/s (peak probe, marginal), "
-          f"{SMS} SMs x {IMAD_PER_SM_CLOCK} x max SM clock = {imad_peak / 1e12:.3f} T/s",
-          flush=True)
-    if measured > 1.02 * imad_peak:
-        raise AssertionError("the measured IMAD rate exceeds the card's: a folded chain")
-    imad_rate = min(measured, imad_peak)
-    fp32_rate = SMS * FP32_PER_SM_CLOCK * sm_clock_hz
-    print(f"  bounds: {imad_per_product:g} IMADs a Montgomery product (SASS of fr_mul; "
-          f"model {IMAD_PER_PRODUCT_MODEL}) at {imad_rate / 1e12:.3f} T/s", flush=True)
+    imad_rate = peak_per_s(IMAD_PER_SM_CLOCK)
+    fp32_rate = peak_per_s(FP32_PER_SM_CLOCK)
+    measured = probes.measure_vpu_peak() * 1e9          # raises above 1.02 x peak
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  IMAD rate: peak probe reads {measured / 1e12:.3f} T/s (marginal), "
+          f"{measured / imad_rate:.4f} of the card's {sms} SMs x {IMAD_PER_SM_CLOCK} "
+          f"x peak SM clock = {imad_rate / 1e12:.3f} T/s", flush=True)
+    print(f"  bounds: {imad_per_product:g} IMADs a Montgomery product (the least of the "
+          f"variants' SASS, moves left out; model {IMAD_PER_PRODUCT_MODEL}) at the "
+          f"card's {imad_rate / 1e12:.3f} T/s", flush=True)
     rows, record, bound = phase_kernels(K, L, P, R, sm_clock_hz, imad_rate,
                                         imad_per_product)
     phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit)

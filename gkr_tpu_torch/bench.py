@@ -1,5 +1,5 @@
-"""The port bench: the GKR layer sumcheck at a 2^k-gate layer (default
-k = 20) on one NVIDIA card, the twin of the JAX package's `bench.py`.
+"""The port bench: the GKR layer sumcheck at a 2^k-gate layer (k = LAYER_K
+= 20) on one NVIDIA card, the twin of the JAX package's `bench.py`.
 
     python -m gkr_tpu_torch.bench                      # one JSON line
     GKR_BENCH_EXTRA=1 python -m gkr_tpu_torch.bench    # + a 2^16 layer, the
@@ -12,7 +12,7 @@ seeds) and prints ONE JSON line with `bench.py`'s field names:
                            state (witness packed, wiring plan cached)
   vs_baseline              value / host_py_gates_per_sec: the port has no
                            C++ engine, so the baseline is the host Python
-                           engine at 2^GKR_BENCH_HOST_K (12); cpp_* are null
+                           engine at 2^HOST_K (12); cpp_* are null
   pipelined_*              a batch of 6 instances of the layer with one
                            download for the batch; per-layer amortised ms
   layer_ms, sumcheck_rounds_per_sec, fr_mle_evals_per_sec, mont_mul_per_sec
@@ -21,11 +21,15 @@ seeds) and prints ONE JSON line with `bench.py`'s field names:
   sol_fraction             mont_mul_per_sec / kernel_peak_mul_per_sec
   roofline                 hbm_min_ms (bench.py's byte model at the card's
                            memory rate), vpu_min_ms (the layer's Montgomery
-                           products x the IMADs of one `fr_mul` in its SASS,
-                           at the card's measured IMAD rate), serial_fs_min_ms
-                           (2k dependent MiMC hashes at the measured
-                           latency), chip_min_ms (their max), sol_vs_chip
-                           (chip_min_ms / layer_ms); null on a card whose
+                           products x the IMADs of one product in the
+                           probes' SASS, at the card's IMAD peak),
+                           serial_fs_min_ms (the 2k round hashes' dependent
+                           products at one IMAD a clock of one thread),
+                           chip_min_ms (their max), sol_vs_chip (chip_min_ms
+                           / layer_ms); beside them the readings the floors
+                           do not use: the peak probe's IMAD rate and the
+                           `mimc_multi` kernel's hash latency (2k of them:
+                           serial_fs_measured_ms).  Null on a card whose
                            memory rate is not on record, with the reason
   breakdown_ms             the two builds and the rest (rounds and hashes)
   sync_rtt_ms              one tiny kernel and a synchronize
@@ -52,7 +56,7 @@ from .field import P
 from .mimc import Mimc7
 from .mle import MleStruct
 from .prover import prove
-from .sumcheck import prove_layer_sumcheck
+from .sumcheck import prove_layer_sumcheck, round_poly_len
 from .torcheng import fused as F
 from .torcheng import kernels as K
 from .torcheng import limbs as L
@@ -63,6 +67,10 @@ from .verifier import verify
 HBM_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
 SOL_LIMIT = 1.05                 # sol_vs_chip above this is an impossible reading
 PIPELINE_BATCH = 6
+LAYER_K = 20                     # the headline layer: 2^LAYER_K gates
+HOST_K = 12                      # the host engine's layer (the baseline)
+FULL_K, FULL_KIN = 20, 16        # extra.full_prove: 2^20-gate layers, 2^16 inputs
+TOP_K = 24                       # extra's largest layer
 
 
 def _sync(device) -> None:
@@ -311,10 +319,22 @@ def card_label() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def hashed_elements(k: int) -> int:
+    """Field elements the 2k round hashes of bench.py's 2^k layer take:
+    each round's 2 or 3 coefficients (full support, both gate kinds)."""
+    v = 2 * k
+    return sum(round_poly_len(j, v, [True] * k, True, True) for j in range(1, v + 1))
+
+
 def roofline(dt: float, n: int, mont_muls: int) -> tuple[dict | None, str | None]:
     """The card's floor for one layer against its measured time: (roofline,
     None), or (None, the reason) for a card whose memory rate is not on
-    record.  Raises on an impossible reading (sol_vs_chip > 1.05)."""
+    record.  Raises on an impossible reading (sol_vs_chip > 1.05).
+
+    The floors are the card's: its memory rate, its IMAD peak, and one
+    thread issuing one IMAD a clock through the rounds' dependent MiMC
+    products (4 a hash round an element).  The probes' readings of the
+    IMAD rate and the hash latency are reported beside them."""
     kind = torch.cuda.get_device_name(0)
     gbps = next((g for pfx, g in HBM_GBPS.items() if kind.startswith(pfx)), None)
     if gbps is None:
@@ -322,10 +342,12 @@ def roofline(dt: float, n: int, mont_muls: int) -> tuple[dict | None, str | None
     k = n.bit_length() - 1
     vpu_gops = probes.measure_vpu_peak()
     t_hash = probes.measure_hash_latency()
-    imad_per_mul = probes.probe_sass()["imad_per_mont_mul_cios32"]
+    imad_per_mul = probes.probe_sass()["imad_per_mont_mul"]
+    imad_peak = probes.peak_per_s(probes.IMAD_PER_SM_CLOCK)
+    serial_products = 4 * K.MIMC_ROUNDS * hashed_elements(k)
     hbm_min = _min_hbm_bytes(n, n // 2, n // 2) / (gbps * 1e9)
-    vpu_min = mont_muls * imad_per_mul / (vpu_gops * 1e9)
-    serial_min = 2 * k * t_hash
+    vpu_min = mont_muls * imad_per_mul / imad_peak
+    serial_min = serial_products * imad_per_mul / probes.peak_clock_hz()
     chip_min = max(hbm_min, vpu_min, serial_min)
     sol = chip_min / dt
     if sol > SOL_LIMIT:
@@ -334,12 +356,14 @@ def roofline(dt: float, n: int, mont_muls: int) -> tuple[dict | None, str | None
     return {
         "device_kind": kind,
         "hbm_gbps": gbps,
+        "vpu_u32_gops_peak": round(imad_peak / 1e9, 1),
         "vpu_u32_gops_measured": round(vpu_gops, 1),
         "imad_per_mont_mul_sass": imad_per_mul,
         "t_hash_ms_measured": round(t_hash * 1e3, 4),
         "hbm_min_ms": round(hbm_min * 1e3, 3),
         "vpu_min_ms": round(vpu_min * 1e3, 3),
         "serial_fs_min_ms": round(serial_min * 1e3, 3),
+        "serial_fs_measured_ms": round(2 * k * t_hash * 1e3, 3),
         "chip_min_ms": round(chip_min * 1e3, 3),
         "sol_vs_chip": round(sol, 4),
     }, None
@@ -348,8 +372,7 @@ def roofline(dt: float, n: int, mont_muls: int) -> tuple[dict | None, str | None
 def main() -> dict:
     """Run the bench on the card and print its JSON line; returns it."""
     probes.require_card()
-    k = int(os.environ.get("GKR_BENCH_K", "20"))
-    host_k = int(os.environ.get("GKR_BENCH_HOST_K", "12"))
+    k, host_k = LAYER_K, HOST_K
     n = 1 << k
     v = 2 * k
     out = {"metric": f"gkr_layer_sumcheck_2e{k}_gates_per_sec", "unit": "gates/s"}
@@ -391,11 +414,9 @@ def main() -> dict:
         dt16, _, _ = run_device(16, breakdown=False)
         extra["layer_2e16"] = {"gates_per_sec": round((1 << 16) / dt16, 1),
                                "layer_ms": round(dt16 * 1e3, 3)}
-        fk = int(os.environ.get("GKR_BENCH_FULL_K", str(k)))
-        fki = int(os.environ.get("GKR_BENCH_FULL_KIN", "16"))
-        gates, fdt, stages, verify_s, pipe_s = run_full_prove(fk, fki)
+        gates, fdt, stages, verify_s, pipe_s = run_full_prove(FULL_K, FULL_KIN)
         extra["full_prove"] = {
-            "config": f"depth-3, 2^{fk}-gate layers, 2^{fki} inputs",
+            "config": f"depth-3, 2^{FULL_K}-gate layers, 2^{FULL_KIN} inputs",
             "total_gates": gates,
             "prove_s": round(fdt, 3),
             "gates_per_sec": round(gates / fdt, 1),
@@ -404,12 +425,9 @@ def main() -> dict:
             "pipelined_prove_s": round(pipe_s, 3),
             "pipelined_gates_per_sec": round(gates / pipe_s, 1),
         }
-        top_k = int(os.environ.get("GKR_BENCH_TOPK", "24"))
-        if top_k > k:
-            dt_top, _, _ = run_device(top_k, breakdown=False)
-            extra[f"layer_2e{top_k}"] = {
-                "gates_per_sec": round((1 << top_k) / dt_top, 1),
-                "layer_ms": round(dt_top * 1e3, 2)}
+        dt_top, _, _ = run_device(TOP_K, breakdown=False)
+        extra[f"layer_2e{TOP_K}"] = {"gates_per_sec": round((1 << TOP_K) / dt_top, 1),
+                                     "layer_ms": round(dt_top * 1e3, 2)}
         out["extra"] = extra
     print(json.dumps(out), flush=True)
     return out

@@ -17,7 +17,7 @@
 
 // p = 21888242871839275222246405745257275088548364400416034343698204186575808495617,
 // 32-bit words, least significant first.
-__constant__ uint32_t FR_P[8] = {
+static __constant__ uint32_t FR_P[8] = {
     0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
 
@@ -25,12 +25,12 @@ __constant__ uint32_t FR_P[8] = {
 #define FR_NPRIME32 0xefffffffu
 
 // 1 in Montgomery form: R mod p.
-__constant__ uint32_t FR_ONE[8] = {
+static __constant__ uint32_t FR_ONE[8] = {
     0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
     0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
 
 // R^2 mod p: fr_mul(x, R^2) = x * R mod p.
-__constant__ uint32_t FR_R2[8] = {
+static __constant__ uint32_t FR_R2[8] = {
     0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u,
     0x53bb8085u, 0x8c49833du, 0x7f4e44a5u, 0x0216d0b1u};
 

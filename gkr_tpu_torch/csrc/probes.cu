@@ -168,11 +168,11 @@ static int launch_micro(const void* a, const void* b, void* out, long long n,
   if (reps == 16) {
     k_micro_op<OP, 16><<<g, PROBE_THREADS, 0, s>>>(
         (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
-  } else if (reps == 272) {
-    k_micro_op<OP, 272><<<g, PROBE_THREADS, 0, s>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
   } else if (reps == 1040) {
     k_micro_op<OP, 1040><<<g, PROBE_THREADS, 0, s>>>(
+        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
+  } else if (reps == 4112) {
+    k_micro_op<OP, 4112><<<g, PROBE_THREADS, 0, s>>>(
         (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
   } else {
     return (int)cudaErrorInvalidValue;

@@ -5,9 +5,10 @@ The twins of the JAX package's bench probes (`bench.py`
 `_measure_vpu_peak`, `_measure_hash_latency`; `scripts/micro_vpu.py`;
 `scripts/tune_pallas_mul.py`), on one NVIDIA card through the kernels of
 `csrc/probes.cu` (wrappers in `torcheng/kernels.py`).  Every time is taken
-with CUDA events; nothing here runs without a card.
+with CUDA events (the SM clock check also with the host clock); nothing
+here runs without a card.
 
-    python -m gkr_tpu_torch.probes micro   # ms and Gop/s of 7 u32/i32/f32 ops
+    python -m gkr_tpu_torch.probes micro   # the SM clock; ms and Gop/s of 7 u32/i32/f32 ops
     python -m gkr_tpu_torch.probes tune    # Montgomery variants x block widths
 
 `measure_vpu_peak` and `measure_hash_latency` anchor the port bench's
@@ -16,6 +17,9 @@ roofline (`gkr_tpu_torch.bench`).
 `sass_counts` reads the compiled kernels' SASS (`cuobjdump`), so that a
 rate can be checked against the instructions the card really issues: a
 multiply chain the compiler folded would show fewer IMADs than products.
+A marginal rate above CEILING x the card's peak for its op (the SMs x the
+op's rate an SM a clock x `peak_clock_hz`) raises: it is a folded chain,
+not a fast card.
 """
 
 from __future__ import annotations
@@ -23,9 +27,12 @@ from __future__ import annotations
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import time
 from collections import Counter
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -37,6 +44,18 @@ from .torcheng import limbs as L
 ROWS, COLS = 16, 1 << 20            # the probes' (16, 2^20) words
 N_MONT = 1 << 20                    # the Montgomery chain's elements
 HASH_DEPTHS = (2, 10)               # the MiMC chain's two depths (bench.py)
+IMAD_PER_SM_CLOCK = 64              # sm_90: 32-bit integer multiply-adds an SM a clock
+FP32_PER_SM_CLOCK = 128             # sm_90: f32 multiplies or FMAs an SM a clock
+# Each micro op's peak, operations an SM a clock, for the one instruction a
+# repetition its SASS holds: an IMAD for the integer multiplies (u32_mul16's
+# masks issue beside it on another pipe), one 64-a-clock integer instruction
+# for the shift-add, an IADD3 of two adds for u32_add, FMUL/FFMA for f32.
+OP_PER_SM_CLOCK = {"u32_add": 2 * 64, "u32_mul": IMAD_PER_SM_CLOCK,
+                   "u32_mul16": IMAD_PER_SM_CLOCK, "u32_shift": 64,
+                   "i32_mul": IMAD_PER_SM_CLOCK, "f32_mul": FP32_PER_SM_CLOCK,
+                   "f32_fma": FP32_PER_SM_CLOCK}
+CEILING = 1.02                      # a marginal rate above CEILING x peak raises
+MARGINAL_ROUNDS = 3                 # alternating lo/hi timings a marginal reading
 
 
 def require_card() -> torch.device:
@@ -60,9 +79,52 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def best_ms(fn, reps: int = 5) -> float:
-    """The least of `reps` single timings of fn(), after one warm call."""
-    return min(event_ms(fn, 1, warmup=1 if i == 0 else 0) for i in range(reps))
+def marginal_ms(lo, hi, iters: int) -> float:
+    """Milliseconds of hi() beyond lo(): the median over MARGINAL_ROUNDS of
+    the two timed back to back (`iters` calls each, after one warm call), so
+    that a drift of the card's clock falls on both."""
+    return statistics.median(event_ms(hi, iters, 1) - event_ms(lo, iters, 1)
+                             for _ in range(MARGINAL_ROUNDS))
+
+
+@lru_cache(maxsize=None)
+def max_sm_clock_hz() -> float:
+    """The card's max SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def spin_clock_hz(cycles: int = 10**8) -> tuple[float, float]:
+    """The SM clock as CUDA events and as the host clock see it: a spin of
+    `cycles` SM clock ticks (torch.cuda._sleep) over its time by each."""
+    ms = event_ms(lambda: torch.cuda._sleep(cycles), 3, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    return cycles / (ms * 1e-3), cycles / (time.perf_counter() - t0)
+
+
+@lru_cache(maxsize=None)
+def peak_clock_hz() -> float:
+    """The SM clock the card's peaks take: the larger of nvidia-smi's max
+    and a spin's reading by CUDA events, since some cards run above the max
+    they report (1994 MHz against 1980 on one H100)."""
+    return max(max_sm_clock_hz(), spin_clock_hz()[0])
+
+
+def peak_per_s(per_sm_clock: int) -> float:
+    """Operations a second of the card at `per_sm_clock` an SM a clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * per_sm_clock * peak_clock_hz()
+
+
+def check_ceiling(what: str, rate: float, peak: float) -> None:
+    if rate > CEILING * peak:
+        raise RuntimeError(f"{what}: {rate / 1e9:.1f} Gop/s read, above {CEILING} x "
+                           f"the card's {peak / 1e9:.1f}: a folded chain")
 
 
 # ------------------------------------------------------------------ inputs
@@ -139,16 +201,18 @@ def sass_counts(path) -> dict[str, Counter]:
 
 
 def imads(c: Counter) -> int:
-    """Instructions of the IMAD family (multiplies and multiply-adds, and
-    the moves the compiler issues on the same pipe)."""
-    return sum(v for k, v in c.items() if k.startswith("IMAD"))
+    """Multiplies and multiply-adds of the IMAD family, without the register
+    moves (IMAD.MOV) the compiler issues on the same pipe."""
+    return sum(v for k, v in c.items()
+               if k.startswith("IMAD") and not k.startswith("IMAD.MOV"))
 
 
 def probe_sass() -> dict:
     """What the probes' SASS says: IMADs a repetition of the peak chain
-    (8 products expected), a Montgomery product of each variant, and
+    (8 products expected), a Montgomery product of each variant and the
+    least of them (`imad_per_mont_mul`, what the compute bounds take), and
     instructions a repetition of each micro op."""
-    counts = sass_counts(K.build(("probes.cu",))[0])
+    counts = sass_counts(K.build())
     lo, hi = (counts[f"k_u32_mul_chain<{r}>"] for r in K.CHAIN_REPS)
     out = {"peak_imad_per_rep": (imads(hi) - imads(lo))
            / (K.CHAIN_REPS[1] - K.CHAIN_REPS[0])}
@@ -157,6 +221,7 @@ def probe_sass() -> dict:
         a, b = (counts[f"k_mont_chain<{v},{d},256>"] for d in (d0, d1))
         out[f"imad_per_mont_mul_{name}"] = (imads(b) - imads(a)) / (d1 - d0)
         out[f"instr_per_mont_mul_{name}"] = (sum(b.values()) - sum(a.values())) / (d1 - d0)
+    out["imad_per_mont_mul"] = min(out[f"imad_per_mont_mul_{v}"] for v in K.MONT_VARIANTS)
     _, r0, r1 = K.MICRO_REPS
     for i, op in enumerate(K.MICRO_OPS):
         a, b = (counts[f"k_micro_op<{i},{r}>"] for r in (r0, r1))
@@ -170,15 +235,18 @@ def measure_vpu_peak() -> float:
     """The card's 32-bit integer multiply rate, Gop/s: the marginal rate of
     the u32 multiply chain between 16 and 128 products an accumulator (8
     accumulators an element, (16, 2^20) elements), which cancels the launch
-    and memory cost.  Raises if the marginal time is not positive."""
+    and memory cost.  Raises if the marginal time is not positive, or if
+    the rate is above CEILING x the card's IMAD peak."""
     dev = require_card()
     a, b = peak_inputs(dev)
     lo_r, hi_r = K.CHAIN_REPS
-    lo = best_ms(lambda: K.u32_mul_chain(a, b, lo_r))
-    hi = best_ms(lambda: K.u32_mul_chain(a, b, hi_r))
-    if hi - lo <= 0:
+    dt = marginal_ms(lambda: K.u32_mul_chain(a, b, lo_r),
+                     lambda: K.u32_mul_chain(a, b, hi_r), 20)
+    if dt <= 0:
         raise RuntimeError("u32 peak unmeasurable (marginal time <= 0)")
-    return a.numel() * (hi_r - lo_r) * K.CHAINS / ((hi - lo) * 1e-3) / 1e9
+    rate = a.numel() * (hi_r - lo_r) * K.CHAINS / (dt * 1e-3)
+    check_ceiling("u32 multiply chain", rate, peak_per_s(IMAD_PER_SM_CLOCK))
+    return rate / 1e9
 
 
 def measure_hash_latency() -> float:
@@ -199,9 +267,7 @@ def measure_hash_latency() -> float:
         return h
 
     lo_d, hi_d = HASH_DEPTHS
-    lo = best_ms(lambda: chain(lo_d), 3)
-    hi = best_ms(lambda: chain(hi_d), 3)
-    dt = (hi - lo) / (hi_d - lo_d) * 1e-3
+    dt = marginal_ms(lambda: chain(lo_d), lambda: chain(hi_d), 3) / (hi_d - lo_d) * 1e-3
     if dt <= 0:
         raise RuntimeError("hash latency unmeasurable (marginal time <= 0)")
     return dt
@@ -210,8 +276,9 @@ def measure_hash_latency() -> float:
 def micro(iters: int = 20) -> list[dict]:
     """Each op of `kernels.MICRO_OPS` at (16, 2^20): its time and rate at 16
     repetitions (scripts/micro_vpu.py's measurement, bound by the memory
-    traffic), and its marginal rate between 272 and 1040 repetitions,
-    where the instructions bind.  The kernel is first held to its plain
+    traffic), and its marginal rate between 1040 and 4112 repetitions,
+    where the instructions bind; a marginal rate above CEILING x the op's
+    peak (OP_PER_SM_CLOCK) raises.  The kernel is first held to its plain
     version at 16 repetitions (integers bit-exact, f32 within a relative
     16 * 2^-22: see chip_smoke.py)."""
     dev = require_card()
@@ -225,12 +292,15 @@ def micro(iters: int = 20) -> list[dict]:
         if not ok:
             raise AssertionError(f"micro_op {op}: kernel disagrees with its plain version")
         t16 = event_ms(lambda: K.micro_op(op, a, b, r16), iters)
-        t0 = event_ms(lambda: K.micro_op(op, a, b, r0), iters)
-        t1 = event_ms(lambda: K.micro_op(op, a, b, r1), iters)
+        dt = marginal_ms(lambda: K.micro_op(op, a, b, r0),
+                         lambda: K.micro_op(op, a, b, r1), iters)
         ops = a.numel()
+        marginal = ops * (r1 - r0) / (dt * 1e-3) if dt > 0 else None
+        if marginal is not None:
+            check_ceiling(f"micro_op {op}", marginal, peak_per_s(OP_PER_SM_CLOCK[op]))
         rows.append({"op": op, "ms": t16, "gops": ops * r16 / t16 / 1e6,
-                     "marginal_gops": (ops * (r1 - r0) / (t1 - t0) / 1e6
-                                       if t1 > t0 else None)})
+                     "marginal_gops": None if marginal is None else marginal / 1e9,
+                     "peak_gops": peak_per_s(OP_PER_SM_CLOCK[op]) / 1e9})
     return rows
 
 
@@ -250,8 +320,9 @@ def tune(iters: int = 10) -> list[dict]:
                 raise AssertionError(f"mont_chain {variant}/{block}: depth 1 differs "
                                      f"from mont_mul")
             t0 = event_ms(lambda: K.mont_chain(a, b, d0, variant, block), iters)
-            t1 = event_ms(lambda: K.mont_chain(a, b, d1, variant, block), iters)
-            per = (t1 - t0) / (d1 - d0)
+            per = marginal_ms(lambda: K.mont_chain(a, b, d0, variant, block),
+                              lambda: K.mont_chain(a, b, d1, variant, block),
+                              iters) / (d1 - d0)
             rows.append({"variant": variant, "block": block, "ms_depth1": t0,
                          "ms_per_pass": per,
                          "mmul_per_sec": N_MONT / (per * 1e-3) if per > 0 else None})
@@ -267,10 +338,14 @@ def main(argv=None) -> int:
     require_card()
     print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
     if cmd == "micro":
+        by_events, by_host = spin_clock_hz()
+        print(f"SM clock under a spin: {by_events / 1e6:.1f} MHz by CUDA events, "
+              f"{by_host / 1e6:.1f} MHz by the host clock (max "
+              f"{max_sm_clock_hz() / 1e6:.0f} MHz)", flush=True)
         for r in micro():
             mg = "unmeasurable" if r["marginal_gops"] is None else f"{r['marginal_gops']:8.1f}"
             print(f"{r['op']:10s} {r['ms']:8.4f} ms  {r['gops']:8.1f} Gop/s  "
-                  f"marginal {mg} Gop/s", flush=True)
+                  f"marginal {mg} Gop/s (card's peak {r['peak_gops']:.1f})", flush=True)
     else:
         for r in tune():
             rate = ("unmeasurable" if r["mmul_per_sec"] is None

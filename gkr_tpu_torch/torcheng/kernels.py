@@ -9,7 +9,7 @@ or `csrc/probes.cu` or raises -- there is no fallback.  Each launch adds one
 to `LAUNCHES[name]`.
 
 The kernels are compiled from the sources in the checkout at first use
-(`nvcc` for sm_90a into one plain-C shared library a .cu file, loaded with
+(one `nvcc` for sm_90a into one plain-C shared library, loaded with
 ctypes), into `_build/` beside this package, keyed by a hash of the
 sources.  Importing this module needs neither `nvcc` nor a card.
 
@@ -49,34 +49,30 @@ LAUNCHES = {"mont_mul": 0, "fold": 0, "phase1_eval": 0, "phase2_eval": 0,
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-# The .cu sources, one shared library each (both include fr.cuh): the
-# prover's kernels and the bench's probes, one nvcc each, side by side.
+# The prover's kernels and the bench's probes (both include fr.cuh), built
+# into one shared library by one nvcc.
 SOURCES = ("kernels.cu", "probes.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib = None                  # the prover's kernels (kernels.cu), once loaded
-_probe_lib = None            # the probes (probes.cu), once loaded
+_lib = None
 BUILD_LOG = ""
 
+# Argument types of each C launcher: v pointer, l long long, i int
 _SIGNATURES = {
-    "kernels.cu": {
-        "gkr_mont_mul": "vvvllv",
-        "gkr_fold": "vvvlv",
-        "gkr_phase1_partials": "vvliv",
-        "gkr_phase2_partials": "vvvliv",
-        "gkr_eq_double": "vvlv",
-        "gkr_seg_sum": "vvvvliv",
-        "gkr_normalize": "vivvlv",
-        "gkr_round_coeffs": "vivv",
-        "gkr_mimc_multi": "vivivv",
-        "gkr_stack": "vvvvivlv",
-    },
-    "probes.cu": {
-        "gkr_u32_mul_chain": "vvvliv",
-        "gkr_micro_op": "vvvliiv",
-        "gkr_mont_chain": "vvvliiiv",
-    },
+    "gkr_mont_mul": "vvvllv",
+    "gkr_fold": "vvvlv",
+    "gkr_phase1_partials": "vvliv",
+    "gkr_phase2_partials": "vvvliv",
+    "gkr_eq_double": "vvlv",
+    "gkr_seg_sum": "vvvvliv",
+    "gkr_normalize": "vivvlv",
+    "gkr_round_coeffs": "vivv",
+    "gkr_mimc_multi": "vivivv",
+    "gkr_stack": "vvvvivlv",
+    "gkr_u32_mul_chain": "vvvliv",
+    "gkr_micro_op": "vvvliiv",
+    "gkr_mont_chain": "vvvliiiv",
 }
 _CTYPES = {"v": ctypes.c_void_p, "l": ctypes.c_longlong, "i": ctypes.c_int}
 
@@ -96,71 +92,44 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(source: str = "kernels.cu") -> Path:
-    """The shared library of one .cu file, keyed by a hash of the flags, the
-    shared header and the source."""
+def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in ("fr.cuh", source):
+    for name in ("fr.cuh", *SOURCES):
         h.update((CSRC / name).read_bytes())
-    stem = "libgkrfr" if source == "kernels.cu" else "libgkrprobes"
-    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libgkrfr-{h.hexdigest()[:16]}.so"
 
 
-def build(sources=SOURCES) -> list[Path]:
-    """Compile each .cu file of `sources` into its shared library unless it
-    is already built, all nvcc processes at once.  Raises on a failed
-    build; the compilers' reports land in BUILD_LOG."""
+def build() -> Path:
+    """Compile csrc/ into the shared library unless it is already built.
+    Raises on a failed build; the compiler's report lands in BUILD_LOG."""
     global BUILD_LOG
+    out = library_path()
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for src in sources:
-        out = library_path(src)
-        if out.exists():
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / src)]
-        jobs.append((src, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for src, out, tmp, proc in jobs:
-        log = proc.communicate()[0]
-        logs.append(f"== {src}\n{log}")
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{src} ({proc.returncode})")
-        else:
-            os.replace(tmp, out)
-    if jobs:
-        BUILD_LOG = "\n".join(logs)
-    if failed:
-        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{BUILD_LOG}")
-    return [library_path(src) for src in sources]
-
-
-def _open(source: str):
-    lib = ctypes.CDLL(str(build((source,))[0]))
-    for name, sig in _SIGNATURES[source].items():
-        fn = getattr(lib, name)
-        fn.argtypes = [_CTYPES[c] for c in sig]
-        fn.restype = ctypes.c_int
-    return lib
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / src) for src in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG = res.stdout + res.stderr
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
+    os.replace(tmp, out)
+    return out
 
 
 def _load():
-    """The prover's kernels, built and loaded at first use."""
+    """The kernels, built and loaded at first use."""
     global _lib
     if _lib is None:
-        _lib = _open("kernels.cu")
+        lib = ctypes.CDLL(str(build()))
+        for name, sig in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [_CTYPES[c] for c in sig]
+            fn.restype = ctypes.c_int
+        _lib = lib
     return _lib
-
-
-def _load_probes():
-    """The bench's probe kernels, built and loaded at first use."""
-    global _probe_lib
-    if _probe_lib is None:
-        _probe_lib = _open("probes.cu")
-    return _probe_lib
 
 
 def _check_limbs(*ts: torch.Tensor) -> torch.device:
@@ -656,7 +625,7 @@ CHAINS = 8                       # independent accumulators of u32_mul_chain
 CHAIN_REPS = (16, 128)           # the peak probe's two depths (bench.py)
 MICRO_OPS = ("u32_add", "u32_mul", "u32_mul16", "u32_shift", "i32_mul",
              "f32_mul", "f32_fma")
-MICRO_REPS = (16, 272, 1040)     # scripts/micro_vpu.py's REPS; two deep runs
+MICRO_REPS = (16, 1040, 4112)     # scripts/micro_vpu.py's REPS; two deep runs
 MONT_VARIANTS = ("cios32", "school")
 MONT_DEPTHS = (1, 9)             # scripts/tune_pallas_mul.py's lo and hi depth
 MONT_BLOCKS = (128, 256, 512, 1024)
@@ -718,7 +687,7 @@ def u32_mul_chain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     if a.numel():
-        _launch("u32_mul_chain", dev, _load_probes().gkr_u32_mul_chain,
+        _launch("u32_mul_chain", dev, _load().gkr_u32_mul_chain,
                 _ptr(a), _ptr(b), _ptr(out), a.numel(), reps)
     return out
 
@@ -728,10 +697,12 @@ def u32_mul_chain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
 # a, then REPS times acc = op(acc, b), elementwise.  One kernel template,
 # one instantiation an op and depth.  Bound at (16, 2^20) words and
 # REPS = 16: 201 MB = 60 us against 2^28 ops (at most 3 instructions each,
-# 64 int32 or 128 fp32 a clock per SM: <= 48 us): bytes bind; at 272 and
-# 1040 repetitions the instructions bind, so the marginal time between
+# 64 int32 or 128 fp32 a clock per SM: <= 48 us): bytes bind; at 1040 and
+# 4112 repetitions the instructions bind, so the marginal time between
 # those two is the op's cost (between 16 and a deep run it is not: at 16
-# the memory traffic hides the instructions).  The integer ops are inline PTX (no
+# the memory traffic hides the instructions; between 272 and 1040 the
+# memory the shallower run leaves unhidden still read up to 1.9% above
+# the card's peak).  The integer ops are inline PTX (no
 # folding), f32_mul a rounded multiply (never contracted into an FMA),
 # f32_fma one `fmaf`.  The plain f32_fma rounds twice a step (multiply,
 # then add), the kernel once, so f32 results are compared with a relative
@@ -759,7 +730,7 @@ def micro_op_plain(op: str, a: torch.Tensor, b: torch.Tensor,
 
 def micro_op(op: str, a: torch.Tensor, b: torch.Tensor, reps: int = 16) -> torch.Tensor:
     """`reps` times acc = op(acc, b) from acc = a, elementwise: u32 and i32
-    words in int32 tensors, f32 in float32 ones; reps is 16, 272 or 1040."""
+    words in int32 tensors, f32 in float32 ones; reps is 16, 1040 or 4112."""
     if op not in MICRO_OPS or reps not in MICRO_REPS:
         raise ValueError(f"micro_op {op!r} x {reps}: ops {MICRO_OPS}, reps {MICRO_REPS}")
     dev = _check_words(a, b, torch.float32 if op.startswith("f32") else torch.int32)
@@ -768,7 +739,7 @@ def micro_op(op: str, a: torch.Tensor, b: torch.Tensor, reps: int = 16) -> torch
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
     if a.numel():
-        _launch("micro_op", dev, _load_probes().gkr_micro_op, _ptr(a), _ptr(b),
+        _launch("micro_op", dev, _load().gkr_micro_op, _ptr(a), _ptr(b),
                 _ptr(out), a.numel(), MICRO_OPS.index(op), reps)
     return out
 
@@ -808,7 +779,7 @@ def mont_chain(a: torch.Tensor, b: torch.Tensor, depth: int,
     out = torch.empty_like(a)
     n = a.numel() // N_LIMBS
     if n:
-        _launch(f"mont_chain_{variant}", dev, _load_probes().gkr_mont_chain,
+        _launch(f"mont_chain_{variant}", dev, _load().gkr_mont_chain,
                 _ptr(a), _ptr(b), _ptr(out), n, MONT_VARIANTS.index(variant),
                 depth, block)
     return out

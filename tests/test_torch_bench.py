@@ -147,10 +147,10 @@ def _numpy_op(op, acc, a, b):
 
 @pytest.mark.parametrize("op", K.MICRO_OPS)
 def test_micro_op_plain_matches_numpy_and_jnp(op):
-    """Each op of scripts/micro_vpu.py, 16 and 272 times, on the operands it
-    draws (and on full-range words for the integer ops).  jnp at 16 times
-    only: XLA:CPU flushes subnormal floats to zero, which 272 products by
-    b < 1 reach."""
+    """Each op of scripts/micro_vpu.py, 16 times and as often as the
+    shallower deep run, on the operands it draws (and on full-range words
+    for the integer ops).  jnp at 16 times only: XLA:CPU flushes subnormal
+    floats to zero, which the deep run's products by b < 1 reach."""
     a_t, b_t = probes.micro_inputs(op, "cpu", shape=SHAPE)
     cases = [(a_t.numpy(), b_t.numpy())]
     if op.startswith("u32"):
@@ -220,3 +220,26 @@ def test_demangled_probe_names():
     assert probes._demangle("_Z15k_u32_mul_chainILi128EEvPKjS1_Pjx") == \
         "k_u32_mul_chain<128>"
     assert probes._demangle("_Z10k_mont_mulPKjS0_Pjxx") == "k_mont_mul"
+
+
+def test_sass_imads_leave_out_moves():
+    from collections import Counter
+
+    c = Counter({"IMAD.WIDE.U32": 5, "IMAD.HI.U32": 2, "IMAD": 3, "IMAD.X": 1,
+                 "IMAD.MOV.U32": 7, "IMAD.MOV": 2, "IADD3": 9, "LOP3.LUT": 4})
+    assert probes.imads(c) == 11
+
+
+def test_rate_above_the_ceiling_raises():
+    peak = 16.7e12
+    probes.check_ceiling("u32 multiply chain", peak, peak)
+    probes.check_ceiling("u32 multiply chain", probes.CEILING * peak, peak)
+    with pytest.raises(RuntimeError, match="folded chain"):
+        probes.check_ceiling("u32 multiply chain", 1.03 * peak, peak)
+
+
+def test_serial_floor_counts_the_rounds_hashes():
+    """bench.py's layer has full support and both gate kinds: every one of
+    its 2k rounds hashes 3 coefficients."""
+    for k in (3, 8, 20):
+        assert B.hashed_elements(k) == 3 * 2 * k
