@@ -14,21 +14,25 @@ Phases, each fatal on failure:
      of a Montgomery product sets every compute bound; then each kernel against its
      plain PyTorch version on the card at the shapes of the path that runs
      it (n = 2^20; the wiring plans of synth_circuit(20, 16); a bucket of
-     70,000 gates; the probes' (16, 2^20) words and 2^20 elements), random
-     and edge inputs, bit-equal (the f32 probe ops within a stated relative
-     tolerance); kernel and plain version timed with CUDA events,
-     `index_add_` beside the segment sum, `torch.stack` beside the stack;
+     70,000 gates; G = 1 and 1024 round partials; the probes' (16, 2^20)
+     words and 2^20 elements), random and edge inputs, bit-equal (the f32
+     probe ops within a stated relative tolerance); the round tail's and
+     mimc_multi's challenges also against the host Mimc7 on 262 lists;
+     kernel and plain version timed with CUDA events, `index_add_` beside
+     the segment sum, `torch.stack` beside the stack;
   4. per-round slice: prove(synth_circuit(20, 16)) with
      TorchBackend(fused=False), per-stage times, the port's verify, and the
      kernel launch counts of that one prove; then device time by kernel
      over one more prove (torch.profiler);
-  5. fused slice: the same with TorchBackend(), the fused engine;
+  5. fused slice: the same with TorchBackend(), the fused engine (three
+     launches a round: partials, round_tail, fold); [5b] lists the device
+     time of every kernel of the warm prove;
   6. card against CPU: synth_circuit(12, 10) proved on both with each
      engine, identical; a corrupted device challenge must make the fused
      layer's host check raise;
   7. pipelined slice: prove_pipelined(synth_circuit(20, 16)): its proof
      equals [5]'s, the port's verify accepts it, its launch counts are
-     [5]'s with one more `mimc_multi` (r*) and two more `mont_mul` (z-chain,
+     [5]'s with one `mimc_multi` (r*) and two more `mont_mul` (z-chain,
      line points) a layer, and the walk makes exactly 2 host syncs
      (torch.cuda.set_sync_debug_mode);
   8. the port bench, gkr_tpu_torch.bench.main() at k = 20: its JSON line,
@@ -56,12 +60,13 @@ from gkr_tpu_torch.probes import (FP32_PER_SM_CLOCK, IMAD_PER_SM_CLOCK, event_ms
                                   spin_clock_hz)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-IMAD_PER_PRODUCT_MODEL = 264     # fr.cuh CIOS: 128 32x32->64 products x 2 + 8
 ELEM_BYTES = 64                  # one field element: 16 int32 limbs
+HASH_PRODUCTS = 3 * 4 * 91       # dependent products of a 3-element MiMC7-91 hash
+RANDOM_HASH_LISTS = 256          # seeded 3-element lists the device hashes are held on
 N = 1 << 20                      # the main path's table size
 DEVICE = "cuda"
 
-FUSED_ONLY = ("phase1_partials", "phase2_partials", "round_coeffs",
+FUSED_ONLY = ("phase1_partials", "phase2_partials", "round_tail",
               "mimc_multi", "seg_sum", "normalize", "normalize_mul", "stack")
 # Launches of one prove of synth_circuit(20, 16): three layer sumchecks with
 # k_next = 20, 20, 16 (40 + 40 + 32 rounds) on the card.  Both engines build
@@ -70,7 +75,7 @@ FUSED_ONLY = ("phase1_partials", "phase2_partials", "round_coeffs",
 EXPECTED_PER_ROUND = {"phase1_eval": 20, "phase2_eval": 20, "fold": 40,
                       "eq_table": 100, **{name: 0 for name in FUSED_ONLY}}
 EXPECTED_FUSED = {
-    "round_coeffs": 112, "mimc_multi": 112, "fold": 112,
+    "round_tail": 112, "mimc_multi": 0, "fold": 112,
     "phase1_partials": 56, "phase2_partials": 56,
     # 2 plans (phase 1, phase 2) per gate kind: 2 + 2 for each wide layer,
     # 1 + 1 for the output layer (add gates only)
@@ -83,9 +88,10 @@ EXPECTED_FUSED = {
     "phase1_eval": 0, "phase2_eval": 0,
 }
 LAUNCHES_FROM_PER_ROUND = ("phase1_eval", "phase2_eval")
+LAUNCHES_FROM_PIPELINED = ("mimc_multi",)         # r*, one a layer
 # The kernels line takes the other probes' launches from the path that runs them.
 LAUNCHES_FROM_PROBES = ("u32_mul_chain", "micro_op", "mont_chain_cios32",
-                        "mont_chain_school")
+                        "mont_chain_school", "mont_chain_lat")
 
 
 def smi(fields: str, fmt: str = "csv,noheader") -> str:
@@ -396,38 +402,75 @@ def phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit):
            18 * N * 4 + N * ELEM_BYTES + ELEM_BYTES, 2.5 * N)
     del t, got, want
 
-    # round_coeffs at G = 1024 (2^20 tables) and G = 1 (the last rounds)
+    # round_tail at G = 1 (the last rounds) and G = 1024 (2^20 tables),
+    # lengths 2 and 3: edge partials, and 1024 partials of p - 1 (the
+    # largest lazy sums); its challenge against the host Mimc7
+    host = Mimc7()
     tiny = torch.zeros(16, dtype=torch.int32, device=dev)
     launch_ms = event_ms(lambda: tiny.add_(0), 200)
+    tails = {}
     for G in (1, 1024):
-        part = with_edges(random_limbs(rng, (G, 3), dev), edges[:3 * G], L)
-        got, want = K.round_coeffs(part), K.round_coeffs_plain(part)
-        if not torch.equal(got, want):
-            raise AssertionError(f"round_coeffs G={G}: disagrees with its plain version")
-    record("round_coeffs", "gkr_tpu/jaxeng/pallas_kernels.py:479", got, want,
-           event_ms(lambda: K.round_coeffs(part), 200),
-           event_ms(lambda: K.round_coeffs_plain(part), 3, 1),
-           (G * 3 + 3) * ELEM_BYTES, 0)
-    print(f"    round_coeffs beside one tiny plain-torch launch back to back: "
+        for label, part in (("edges", with_edges(random_limbs(rng, (G, 3), dev),
+                                                 edges[:3 * G], L)),
+                            ("p - 1", L.pack([P - 1] * (3 * G), dev).reshape(G, 3, 16))):
+            for length in (2, 3):
+                got, want = K.round_tail(part, length), K.round_tail_plain(part, length)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"round_tail G={G} ({label}) length {length}: "
+                                         f"disagrees with its plain version")
+                coeffs = L.unpack(got[0])[3 - length:]
+                if L.unpack_scalar(got[1]) != host.multi_hash(coeffs, 0):
+                    raise AssertionError(f"round_tail G={G} length {length}: the "
+                                         f"challenge differs from the host Mimc7")
+            if label == "edges":
+                tails[G] = (part, torch.cat([got[0], got[1][None]]),
+                            torch.cat([want[0], want[1][None]]))
+
+    # both device hashes on the lists the rounds hash: mimc_multi directly,
+    # round_tail through one partial (y0, y1, y2) that interpolates to the
+    # list (c2 random for a 2-element list)
+    lists = [[0, 1], [P - 1, P - 1], [0, 1, P - 1], [P - 1, 0, 1],
+             [rand_field(rng, P) for _ in range(2)],
+             [rand_field(rng, P) for _ in range(3)]]
+    lists += [[rand_field(rng, P) for _ in range(3)] for _ in range(RANDOM_HASH_LISTS)]
+    outs = []
+    for vals in lists:
+        c2, c1, c0 = vals if len(vals) == 3 else [rand_field(rng, P)] + vals
+        ys = [(c0 + c1 * t + c2 * t * t) % P for t in range(3)]
+        co, r = K.round_tail(L.pack(ys, dev).reshape(1, 3, 16), len(vals))
+        outs.append((co, r, K.mimc_multi(L.pack(vals, dev))))
+    t0 = time.perf_counter()
+    want = [host.multi_hash(vals, 0) for vals in lists]
+    host_s = time.perf_counter() - t0
+    for vals, w, (co, r, m) in zip(lists, want, outs):
+        if L.unpack(co)[3 - len(vals):] != vals or L.unpack_scalar(r) != w:
+            raise AssertionError(f"round_tail: differs from the host Mimc7 on {vals}")
+        if L.unpack_scalar(m) != w:
+            raise AssertionError(f"mimc_multi: differs from the host Mimc7 on {vals}")
+    print(f"  round_tail and mimc_multi: the host Mimc7's challenge on {len(lists)} "
+          f"lists ({RANDOM_HASH_LISTS} random; host hashing {host_s:.2f} s)", flush=True)
+
+    consts = (K.MIMC_ROUNDS + 1) * ELEM_BYTES        # the constants and the challenge
+    for G, replaces in ((1024, "gkr_tpu/jaxeng/pallas_kernels.py:479"),
+                        (1, "gkr_tpu/jaxeng/pallas_kernels.py:813")):
+        part, got, want = tails[G]
+        record("round_tail", replaces, got, want,
+               event_ms(lambda: K.round_tail(part, 3), 50),
+               event_ms(lambda: K.round_tail_plain(part, 3), 3, 1),
+               (G * 3 + 3) * ELEM_BYTES + consts, HASH_PRODUCTS, serial=True)
+        print(f"    (G = {G}, length 3; pl_round_coeffs and pl_mimc_multi in one "
+              f"launch)", flush=True)
+    print(f"    round_tail beside one tiny plain-torch launch back to back: "
           f"{launch_ms:.4f} ms", flush=True)
 
-    # mimc_multi at lengths 2 and 3 against the plain version and the host
-    host = Mimc7()
-    for vals in ([0, 1], [P - 1, P - 1], [0, 1, P - 1], [P - 1, 0, 1],
-                 [rand_field(rng, P) for _ in range(2)],
-                 [rand_field(rng, P) for _ in range(3)]):
-        x = L.pack(vals, dev)
-        got, want = K.mimc_multi(x), K.mimc_multi_plain(x)
-        if not torch.equal(got, want) or L.unpack_scalar(got) != host.multi_hash(vals, 0):
-            raise AssertionError(f"mimc_multi: differs from the host Mimc7 on {vals}")
+    x = L.pack(lists[-1], dev)
     ms = event_ms(lambda: K.mimc_multi(x), 50)
-    record("mimc_multi", "gkr_tpu/jaxeng/pallas_kernels.py:813", got, want, ms,
-           event_ms(lambda: K.mimc_multi_plain(x), 5, 1),
-           (3 + K.MIMC_ROUNDS + 1) * ELEM_BYTES, 3 * 4 * K.MIMC_ROUNDS,
-           serial=True)
-    print(f"    mimc_multi, 3 elements: {3 * 4 * K.MIMC_ROUNDS} dependent products, "
-          f"{ms / (3 * 4 * K.MIMC_ROUNDS) * 1e6:.1f} ns each; bound: one thread "
-          f"issuing one IMAD a clock", flush=True)
+    record("mimc_multi", "gkr_tpu/jaxeng/pallas_kernels.py:813", K.mimc_multi(x),
+           K.mimc_multi_plain(x), ms, event_ms(lambda: K.mimc_multi_plain(x), 5, 1),
+           3 * ELEM_BYTES + consts, HASH_PRODUCTS, serial=True)
+    print(f"    mimc_multi, 3 elements: {HASH_PRODUCTS} dependent products, "
+          f"{ms / HASH_PRODUCTS * 1e6:.1f} ns each; bound: one thread issuing one "
+          f"IMAD a clock", flush=True)
 
     # stack: the phase-1 build's (2^20, 4) stack, the phase-2 build's
     # (2^20, 3) one, and the output layer's with no mult table (None)
@@ -524,7 +567,7 @@ def phase_profile(prove, make_backend, circuit, w, wall_s):
     print(f"  device busy {total_s:.3f} s: {100 * total_s / wall_s:.1f}% of the "
           f"unprofiled prove's {wall_s:.3f} s ({prof_wall:.3f} s with the "
           f"profiler on)", flush=True)
-    for e in sorted(events, key=dev_us, reverse=True)[:12]:
+    for e in sorted(events, key=dev_us, reverse=True):
         print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:70]}",
               flush=True)
     print("  layer sumcheck stages (host clock, all layers, profiler on):",
@@ -580,8 +623,8 @@ def phase_card_vs_cpu(F, prove, verify, TorchBackend, synth_circuit, mle_struct,
 def phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass):
     """The bench's three probe kernels against their plain versions at the
     probes' shapes: (16, 2^20) u32 words, the same as i32/f32 words, 2^20
-    Montgomery elements with edge values in the first rows.  Both
-    Montgomery variants are bound by one count a product, the least."""
+    Montgomery elements with edge values in the first rows.  Every
+    Montgomery variant is bound by one count a product, the least."""
     dev = DEVICE
     words = probes.ROWS * probes.COLS
 
@@ -658,6 +701,7 @@ def phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass):
                3 * n * ELEM_BYTES, depth * n, source="gkr_tpu_torch/csrc/probes.cu")
         print(f"    (depth {depth}, block 256; SASS: "
               f"{sass[f'imad_per_mont_mul_{variant}']:g} IMADs without moves, "
+              f"{sass[f'wide_per_mont_mul_{variant}']:g} of them IMAD.WIDE, "
               f"{sass[f'instr_per_mont_mul_{variant}']:g} instructions a product)",
               flush=True)
     del a, b, got, want
@@ -799,8 +843,8 @@ def main() -> int:
           f"{measured / imad_rate:.4f} of the card's {sms} SMs x {IMAD_PER_SM_CLOCK} "
           f"x peak SM clock = {imad_rate / 1e12:.3f} T/s", flush=True)
     print(f"  bounds: {imad_per_product:g} IMADs a Montgomery product (the least of the "
-          f"variants' SASS, moves left out; model {IMAD_PER_PRODUCT_MODEL}) at the "
-          f"card's {imad_rate / 1e12:.3f} T/s", flush=True)
+          f"variants' SASS, moves left out) at the card's {imad_rate / 1e12:.3f} T/s",
+          flush=True)
     rows, record, bound = phase_kernels(K, L, P, R, sm_clock_hz, imad_rate,
                                         imad_per_product)
     phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit)
@@ -840,8 +884,8 @@ def main() -> int:
                       prove_layer_sumcheck, Mimc7, P)
 
     print("[7] pipelined slice: prove_pipelined(synth_circuit(20, 16))", flush=True)
-    _, wall_pipe = phase_pipelined(K, F, prove_pipelined, verify, backend, circuit,
-                                   w, proof, fused)
+    pipelined, wall_pipe = phase_pipelined(K, F, prove_pipelined, verify, backend,
+                                           circuit, w, proof, fused)
     print(f"  pipelined prove {wall_pipe:.3f} s against the fused prove's "
           f"{wall_warm:.3f} s, plans cached (host clock, this run)", flush=True)
     del circuit, w, proof, backend
@@ -855,6 +899,7 @@ def main() -> int:
 
     for row in rows:
         src = (per_round if row["name"] in LAUNCHES_FROM_PER_ROUND
+               else pipelined if row["name"] in LAUNCHES_FROM_PIPELINED
                else from_probes if row["name"] in LAUNCHES_FROM_PROBES else fused)
         row["launches"] = src.get(row["name"], 0)
         if row["launches"] <= 0:

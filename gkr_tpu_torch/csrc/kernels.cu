@@ -12,7 +12,8 @@
 //   gkr_eq_double       one doubling of the chi table  pl_eq_table_T
 //   gkr_seg_sum         per-bucket sums, key-sorted  pl_seg_sum_T
 //   gkr_normalize       relaxed -> canonical (x s)   pl_normalize_T / pl_normalize_mul_T
-//   gkr_round_coeffs    partials -> (c2, c1, c0)     pl_round_coeffs
+//   gkr_round_tail      partials -> (c2, c1, c0) and the round's challenge
+//                                                    pl_round_coeffs + pl_mimc_multi
 //   gkr_mimc_multi      MiMC7 multi_hash, key 0      pl_mimc_multi
 //   gkr_stack           T (n, 16) tables -> (n, T, 16)  pl_transpose_T
 //
@@ -55,8 +56,10 @@ k_fold(const uint32_t* __restrict__ S, const uint32_t* __restrict__ r,
 
 // ------------------------------------------------------- eval block sums
 // Folds the block's per-thread canonical sums by a tree of field adds in
-// shared memory; the block's total lands in sh[t][0].
-__device__ __forceinline__ void block_reduce3(Fr acc[3], Fr (*sh)[THREADS]) {
+// shared memory; each block writes one (3, 16) canonical partial.
+__device__ __forceinline__ void block_reduce_store(Fr acc[3],
+                                                   uint32_t* partials) {
+  __shared__ Fr sh[3][THREADS];
   const int tid = threadIdx.x;
 #pragma unroll
   for (int t = 0; t < 3; ++t) sh[t][tid] = acc[t];
@@ -68,14 +71,7 @@ __device__ __forceinline__ void block_reduce3(Fr acc[3], Fr (*sh)[THREADS]) {
     }
     __syncthreads();
   }
-}
-
-// Each block writes one (3, 16) canonical partial.
-__device__ __forceinline__ void block_reduce_store(Fr acc[3],
-                                                   uint32_t* partials) {
-  __shared__ Fr sh[3][THREADS];
-  block_reduce3(acc, sh);
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
 #pragma unroll
     for (int t = 0; t < 3; ++t) fr_store(partials + 48 * blockIdx.x + 16 * t, sh[t][0]);
   }
@@ -267,47 +263,144 @@ k_normalize(const uint32_t* __restrict__ t, int lin,
   fr_store(out + 16 * i, x);
 }
 
-// ------------------------------------------------------------ round coeffs
-// partials: G canonical (3, 16) block sums of g(0), g(1), g(2).  One block
-// adds them mod p and interpolates: c2 = (y2 + y0 - 2 y1) / 2,
-// c1 = y1 - y0 - c2, c0 = y0; out is (3, 16) = (c2, c1, c0).
-__global__ void __launch_bounds__(THREADS)
-k_round_coeffs(const uint32_t* __restrict__ partials, int G,
-               uint32_t* __restrict__ out) {
-  __shared__ Fr sh[3][THREADS];
-  Fr acc[3] = {fr_zero(), fr_zero(), fr_zero()};
-  for (int g = threadIdx.x; g < G; g += THREADS) {
-#pragma unroll
-    for (int t = 0; t < 3; ++t) acc[t] = fr_add(acc[t], fr_load(partials + 48 * g + 16 * t));
-  }
-  block_reduce3(acc, sh);
-  if (threadIdx.x == 0) {
-    Fr y0 = sh[0][0], y1 = sh[1][0], y2 = sh[2][0];
-    Fr c2 = fr_half(fr_sub(fr_add(y2, y0), fr_add(y1, y1)));
-    Fr c1 = fr_sub(fr_sub(y1, y0), c2);
-    fr_store(out, c2);
-    fr_store(out + 16, c1);
-    fr_store(out + 32, y0);
-  }
-}
-
 // -------------------------------------------------------------------- MiMC
 // multi_hash(x[0..len), key 0) of MiMC7 with n_rounds rounds (iden3):
 // hash(x, k): h = (x + k)^7, then h = (h + k + c_i)^7 for i >= 1, return
-// h + k;  r = 0; for x: r = r + x + hash(x, r).  cts: (n_rounds, 16)
-// Montgomery constants.  One thread: every product depends on the last.
-__global__ void k_mimc_multi(const uint32_t* __restrict__ x, int len,
-                             const uint32_t* __restrict__ cts, int n_rounds,
-                             uint32_t* __restrict__ out) {
+// h + k;  r = 0; for x: r = r + x + hash(x, r).  With c_0 = 0 and the key
+// table kc_i = (k + c_i) mod p, every round is h = (h + kc_i)^7 from h = x.
+//
+// The rounds are one dependent chain, run by one thread: 3 dependent
+// products a round (fr_pow7) of the latency-first fr_mul_lat, on the 29-bit
+// limbs of Fr29 (fr.cuh), where no value is reduced inside the chain and
+// h + kc_i is a limb-wise add.  kc lives in shared memory, filled by the
+// block's threads before each element, so the chain never waits on device
+// memory; the next round's key is read while this round's products run.
+#define MIMC_MAX_ROUNDS 91
+
+__device__ __forceinline__ Fr mimc_rounds(const Fr& x, const Fr29* kc,
+                                          int n_rounds) {
+  Fr29 h = fr29_from_fr(x);
+  Fr29 k = kc[0];
+  for (int i = 0; i < n_rounds; ++i) {
+    const Fr29 t = fr29_add_lazy(h, k);
+    if (i + 1 < n_rounds) k = kc[i + 1];
+    h = fr_pow7(t);
+  }
+  return fr29_to_fr(h);
+}
+
+// Called by every thread of the block.  x: len elements of 16 limbs, read
+// by thread 0 only; kc (n_rounds entries) and r_sh in shared memory.
+// Returns r in every thread.
+__device__ Fr mimc_multi_block(const uint32_t* x, int len,
+                               const uint32_t* __restrict__ cts, int n_rounds,
+                               Fr29* kc, Fr* r_sh) {
   Fr r = fr_zero();
   for (int e = 0; e < len; ++e) {
-    Fr xe = fr_load(x + 16 * e);
-    Fr h = fr_pow7(fr_add(xe, r));
-    for (int i = 1; i < n_rounds; ++i)
-      h = fr_pow7(fr_add(fr_add(h, r), fr_load(cts + 16 * i)));
-    r = fr_add(fr_add(r, xe), fr_add(h, r));
+    for (int i = threadIdx.x; i < n_rounds; i += blockDim.x)
+      kc[i] = fr29_from_fr(fr_add(r, fr_load(cts + 16 * i)));
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const Fr xe = fr_load(x + 16 * e);
+      const Fr h = mimc_rounds(xe, kc, n_rounds);
+      *r_sh = fr_add(fr_add(r, xe), fr_add(h, r));
+    }
+    __syncthreads();
+    r = *r_sh;
   }
-  fr_store(out, r);
+  return r;
+}
+
+// One warp: lane 0 runs the chain, the others fill the key table.
+#define MIMC_THREADS 32
+
+__global__ void __launch_bounds__(MIMC_THREADS)
+k_mimc_multi(const uint32_t* __restrict__ x, int len,
+             const uint32_t* __restrict__ cts, int n_rounds,
+             uint32_t* __restrict__ out) {
+  __shared__ Fr29 kc[MIMC_MAX_ROUNDS];
+  __shared__ Fr r_sh;
+  const Fr r = mimc_multi_block(x, len, cts, n_rounds, kc, &r_sh);
+  if (threadIdx.x == 0) fr_store(out, r);
+}
+
+// --------------------------------------------------------------- round tail
+// The end of a fused round in one launch: partials -> coefficients -> the
+// round's challenge.  partials: G <= 1024 canonical (3, 16) block sums of
+// g(0), g(1), g(2).  The sums are lazy: each 16-bit limb is added as it is
+// into a 32-bit accumulator (G * (2^16 - 1) < 2^26), the block's threads
+// fold theirs by warp shuffles and then across warps, and threads 0..2 each
+// turn one y_t's relaxed limbs (value < 1024 p) into words and reduce them
+// mod p (REDC, then x R^2, as k_normalize).  Thread 0 interpolates c2 =
+// (y2 + y0 - 2 y1) / 2, c1 = y1 - y0 - c2, c0 = y0, writes coeffs (3, 16) =
+// (c2, c1, c0), and the block hashes coeffs[3 - length:] (mimc_multi_block)
+// into r (16,).
+#define TAIL_THREADS 256
+#define TAIL_WORDS 48            // (3, 16) limbs of one partial
+#define TAIL_MAX_G 1024          // the eval kernels' grid at most (MAX_EVAL_BLOCKS)
+
+__global__ void __launch_bounds__(TAIL_THREADS)
+k_round_tail(const uint32_t* __restrict__ partials, int G, int length,
+             const uint32_t* __restrict__ cts, int n_rounds,
+             uint32_t* coeffs, uint32_t* __restrict__ r_out) {
+  __shared__ uint32_t red[TAIL_THREADS / 32][TAIL_WORDS];
+  __shared__ Fr y[3];
+  __shared__ Fr29 kc[MIMC_MAX_ROUNDS];
+  __shared__ Fr r_sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  uint32_t acc[TAIL_WORDS];
+#pragma unroll
+  for (int l = 0; l < TAIL_WORDS; ++l) acc[l] = 0u;
+  for (int g = tid; g < G; g += TAIL_THREADS) {
+    const uint4* q = reinterpret_cast<const uint4*>(partials + TAIL_WORDS * g);
+#pragma unroll
+    for (int k = 0; k < TAIL_WORDS / 4; ++k) {
+      const uint4 v = q[k];
+      acc[4 * k] += v.x;
+      acc[4 * k + 1] += v.y;
+      acc[4 * k + 2] += v.z;
+      acc[4 * k + 3] += v.w;
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < TAIL_WORDS; ++l) {
+    uint32_t v = acc[l];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][l] = v;
+  }
+  __syncthreads();
+  if (tid < 3) {
+    uint32_t T[17];
+    uint32_t c = 0u;
+#pragma unroll
+    for (int l = 0; l < 16; ++l) {
+      uint32_t s = c;
+#pragma unroll
+      for (int w = 0; w < TAIL_THREADS / 32; ++w) s += red[w][16 * tid + l];
+      const uint32_t limb = s & 0xffffu;
+      c = s >> 16;
+      if (l & 1) T[l >> 1] |= limb << 16;
+      else T[l >> 1] = limb;
+    }
+    T[8] = c;
+#pragma unroll
+    for (int j = 9; j < 17; ++j) T[j] = 0u;
+    y[tid] = fr_mul(fr_redc_wide(T), fr_const(FR_R2));
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const Fr y0 = y[0], y1 = y[1], y2 = y[2];
+    const Fr c2 = fr_half(fr_sub(fr_add(y2, y0), fr_add(y1, y1)));
+    fr_store(coeffs, c2);
+    fr_store(coeffs + 16, fr_sub(fr_sub(y1, y0), c2));
+    fr_store(coeffs + 32, y0);
+  }
+  // thread 0 reads back what it wrote: no other thread reads coeffs
+  const Fr r = mimc_multi_block(coeffs + 16 * (3 - length), length, cts,
+                                n_rounds, kc, &r_sh);
+  if (tid == 0) fr_store(r_out, r);
 }
 
 // ------------------------------------------------------------------- stack
@@ -383,15 +476,22 @@ int gkr_normalize(const void* t, int lin, const void* s, void* out,
   return (int)cudaGetLastError();
 }
 
-int gkr_round_coeffs(const void* partials, int G, void* out, void* stream) {
-  k_round_coeffs<<<1, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)partials, G, (uint32_t*)out);
+int gkr_round_tail(const void* partials, int G, int length, const void* cts,
+                   int n_rounds, void* coeffs, void* r, void* stream) {
+  if (G < 1 || G > TAIL_MAX_G || length < 1 || length > 3 || n_rounds < 1 ||
+      n_rounds > MIMC_MAX_ROUNDS)
+    return (int)cudaErrorInvalidValue;
+  k_round_tail<<<1, TAIL_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)partials, G, length, (const uint32_t*)cts, n_rounds,
+      (uint32_t*)coeffs, (uint32_t*)r);
   return (int)cudaGetLastError();
 }
 
 int gkr_mimc_multi(const void* x, int len, const void* cts, int n_rounds,
                    void* out, void* stream) {
-  k_mimc_multi<<<1, 1, 0, (cudaStream_t)stream>>>(
+  if (len < 1 || n_rounds < 1 || n_rounds > MIMC_MAX_ROUNDS)
+    return (int)cudaErrorInvalidValue;
+  k_mimc_multi<<<1, MIMC_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x, len, (const uint32_t*)cts, n_rounds, (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,7 @@
 //   gkr_u32_mul_chain  8 u32 multiply chains an element, summed    bench.py _measure_vpu_peak
 //   gkr_micro_op       REPS of one u32/i32/f32 op an element       scripts/micro_vpu.py make_bench
 //   gkr_mont_chain     x <- x * b / R, DEPTH times, by variant     scripts/tune_pallas_mul.py build
+//                      (cios32, school, lat)
 //
 // Each launcher enqueues on the given stream, allocates nothing, and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a parameter it has no
@@ -136,9 +137,13 @@ __device__ __forceinline__ Fr fr_mul_school(const Fr& a, const Fr& b) {
   return fr_redc_wide(T);
 }
 
-// VARIANT 0: CIOS (fr_mul, the production product); 1: separated schoolbook.
-// x = a[i]; DEPTH times x = x * b[i] / R; out[i] = x.  BLOCK threads a block,
-// so the register budget follows the block width as a Pallas block would.
+// VARIANT 0: CIOS (fr_mul, the throughput kernels' product); 1: separated
+// schoolbook; 2: the hash's latency-first product (fr_mul_lat on Fr29
+// limbs: x and b converted once, DEPTH products, x converted back).
+// x = a[i]; DEPTH times x = x * b[i] / R; out[i] = x.  BLOCK threads a
+// block, so the register budget follows the block width as a Pallas block
+// would.  At one element the chain is one thread's dependent products: its
+// marginal time between the depths is a product's latency.
 template <int VARIANT, int DEPTH, int BLOCK>
 __global__ void __launch_bounds__(BLOCK)
 k_mont_chain(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
@@ -147,8 +152,16 @@ k_mont_chain(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   if (i >= n) return;
   Fr x = fr_load(a + 16 * i);
   const Fr y = fr_load(b + 16 * i);
+  if constexpr (VARIANT == 2) {
+    Fr29 x29 = fr29_from_fr(x);
+    const Fr29 y29 = fr29_from_fr(y);
 #pragma unroll
-  for (int d = 0; d < DEPTH; ++d) x = VARIANT == 0 ? fr_mul(x, y) : fr_mul_school(x, y);
+    for (int d = 0; d < DEPTH; ++d) x29 = fr_mul_lat(x29, y29);
+    x = fr29_to_fr(x29);
+  } else {
+#pragma unroll
+    for (int d = 0; d < DEPTH; ++d) x = VARIANT == 0 ? fr_mul(x, y) : fr_mul_school(x, y);
+  }
   fr_store(out + 16 * i, x);
 }
 
@@ -237,6 +250,8 @@ int gkr_mont_chain(const void* a, const void* b, void* out, long long n,
   if (variant == 0 && depth == 9) return launch_chain<0, 9>(a, b, out, n, block, s);
   if (variant == 1 && depth == 1) return launch_chain<1, 1>(a, b, out, n, block, s);
   if (variant == 1 && depth == 9) return launch_chain<1, 9>(a, b, out, n, block, s);
+  if (variant == 2 && depth == 1) return launch_chain<2, 1>(a, b, out, n, block, s);
+  if (variant == 2 && depth == 9) return launch_chain<2, 9>(a, b, out, n, block, s);
   return (int)cudaErrorInvalidValue;
 }
 

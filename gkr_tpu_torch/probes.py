@@ -9,7 +9,8 @@ with CUDA events (the SM clock check also with the host clock); nothing
 here runs without a card.
 
     python -m gkr_tpu_torch.probes micro   # the SM clock; ms and Gop/s of 7 u32/i32/f32 ops
-    python -m gkr_tpu_torch.probes tune    # Montgomery variants x block widths
+    python -m gkr_tpu_torch.probes tune    # Montgomery variants x block widths,
+                                           # and each variant's one-thread latency
 
 `measure_vpu_peak` and `measure_hash_latency` anchor the port bench's
 roofline (`gkr_tpu_torch.bench`).
@@ -71,6 +72,29 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean milliseconds of fn() on the card with its launches back to back:
+    a spin (torch.cuda._sleep) holds the stream while the host enqueues
+    them, so the host's time to launch does not pad kernels shorter than it
+    (a one-thread chain of a few products takes microseconds)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * enqueue_s * peak_clock_hz()) + 10**6)
     start.record()
     for _ in range(iters):
         fn()
@@ -207,11 +231,18 @@ def imads(c: Counter) -> int:
                if k.startswith("IMAD") and not k.startswith("IMAD.MOV"))
 
 
+def wide_imads(c: Counter) -> int:
+    """32x32->64-bit multiplies (IMAD.WIDE), the family member that one
+    thread's dependent chain of Montgomery products pays most for."""
+    return sum(v for k, v in c.items() if k.startswith("IMAD.WIDE"))
+
+
 def probe_sass() -> dict:
     """What the probes' SASS says: IMADs a repetition of the peak chain
-    (8 products expected), a Montgomery product of each variant and the
-    least of them (`imad_per_mont_mul`, what the compute bounds take), and
-    instructions a repetition of each micro op."""
+    (8 products expected), a Montgomery product of each variant (IMADs, of
+    them the wide ones, and instructions) and the least IMAD count of them
+    (`imad_per_mont_mul`, what the compute bounds take), and instructions a
+    repetition of each micro op."""
     counts = sass_counts(K.build())
     lo, hi = (counts[f"k_u32_mul_chain<{r}>"] for r in K.CHAIN_REPS)
     out = {"peak_imad_per_rep": (imads(hi) - imads(lo))
@@ -220,6 +251,7 @@ def probe_sass() -> dict:
     for v, name in enumerate(K.MONT_VARIANTS):
         a, b = (counts[f"k_mont_chain<{v},{d},256>"] for d in (d0, d1))
         out[f"imad_per_mont_mul_{name}"] = (imads(b) - imads(a)) / (d1 - d0)
+        out[f"wide_per_mont_mul_{name}"] = (wide_imads(b) - wide_imads(a)) / (d1 - d0)
         out[f"instr_per_mont_mul_{name}"] = (sum(b.values()) - sum(a.values())) / (d1 - d0)
     out["imad_per_mont_mul"] = min(out[f"imad_per_mont_mul_{v}"] for v in K.MONT_VARIANTS)
     _, r0, r1 = K.MICRO_REPS
@@ -304,17 +336,37 @@ def micro(iters: int = 20) -> list[dict]:
     return rows
 
 
+def product_latency_ns(variant: str, iters: int = 200) -> float:
+    """Nanoseconds of one dependent Montgomery product of `variant` in one
+    thread: the `mont_chain` kernel at one element, the median over
+    MARGINAL_ROUNDS of its marginal time between depths 1 and 9, launches
+    queued back to back (`queued_ms`).  Raises if it is not positive."""
+    dev = require_card()
+    a, b = mont_inputs(dev, n=1)
+    d0, d1 = K.MONT_DEPTHS
+    ms = statistics.median(
+        queued_ms(lambda: K.mont_chain(a, b, d1, variant), iters)
+        - queued_ms(lambda: K.mont_chain(a, b, d0, variant), iters)
+        for _ in range(MARGINAL_ROUNDS)) / (d1 - d0)
+    if ms <= 0:
+        raise RuntimeError(f"{variant}: product latency unmeasurable (marginal <= 0)")
+    return ms * 1e6
+
+
 def tune(iters: int = 10) -> list[dict]:
     """Each Montgomery variant at each block width on 2^20 elements: depth 1
     must be bit-equal to the `mont_mul` kernel first; then the marginal
     ms a pass between depths 1 and 9 (the product's cost without the
-    memory traffic) and the products a second it gives."""
+    memory traffic) and the products a second it gives; beside them the
+    variant's latency of one dependent product in one thread, in ns and SM
+    clocks (`product_latency_ns` at `peak_clock_hz`)."""
     dev = require_card()
     a, b = mont_inputs(dev)
     ref = K.mont_mul(a, b)
     d0, d1 = K.MONT_DEPTHS
     rows = []
     for variant in K.MONT_VARIANTS:
+        lat_ns = product_latency_ns(variant)
         for block in K.MONT_BLOCKS:
             if not torch.equal(K.mont_chain(a, b, d0, variant, block), ref):
                 raise AssertionError(f"mont_chain {variant}/{block}: depth 1 differs "
@@ -325,7 +377,9 @@ def tune(iters: int = 10) -> list[dict]:
                               iters) / (d1 - d0)
             rows.append({"variant": variant, "block": block, "ms_depth1": t0,
                          "ms_per_pass": per,
-                         "mmul_per_sec": N_MONT / (per * 1e-3) if per > 0 else None})
+                         "mmul_per_sec": N_MONT / (per * 1e-3) if per > 0 else None,
+                         "latency_ns": lat_ns,
+                         "latency_clocks": lat_ns * 1e-9 * peak_clock_hz()})
     return rows
 
 
@@ -351,7 +405,9 @@ def main(argv=None) -> int:
             rate = ("unmeasurable" if r["mmul_per_sec"] is None
                     else f"{r['mmul_per_sec'] / 1e6:8.1f} M muls/s")
             print(f"{r['variant']:7s} block={r['block']:5d}: depth 1 {r['ms_depth1']:.4f} ms, "
-                  f"{r['ms_per_pass']:.4f} ms/mul-pass  {rate}", flush=True)
+                  f"{r['ms_per_pass']:.4f} ms/mul-pass  {rate}; one thread: "
+                  f"{r['latency_ns']:.1f} ns = {r['latency_clocks']:.0f} SM clocks "
+                  f"a dependent product", flush=True)
     key = "instr_per_rep" if cmd == "micro" else "per_mont_mul"
     print("SASS: " + ", ".join(f"{k} {v:g}" for k, v in probe_sass().items()
                                if key in k), flush=True)

@@ -11,10 +11,12 @@ The port's counterpart of the JAX package's default engine,
     pre-sorted columns (`index_select`), products by `mont_mul`, per-bucket
     sums by `seg_sum`, `normalize`, and `stack` into the (n, 4, 16) stack
     [W, HA1, HA2, HM];
-  * the round chain, every round on the card: `phase*_partials` ->
-    `round_coeffs` -> `mimc_multi` (the round's 2 or 3 coefficients, from
-    the host's structural schedule) -> `fold` reading the challenge from
-    device memory.  Tables halve every round down to one entry;
+  * the round chain, every round on the card in three launches:
+    `phase*_partials` -> `round_tail` (the cross-block sum, the round
+    polynomial's coefficients and their MiMC7 hash -- the round's 2 or 3
+    coefficients, from the host's structural schedule) -> `fold` reading
+    the challenge from device memory.  Tables halve every round down to one
+    entry;
   * the phase-2 build from the device challenges b*: eq(b*), FA by
     `normalize`, FM * W~(b*) by `normalize` with the scalar, `stack` into
     [W, FA, FMwb];
@@ -135,8 +137,7 @@ def _run_phase(S, sched, wb=None):
     coeffs, rs = [], []
     for length in sched:
         part = K.phase1_partials(S) if wb is None else K.phase2_partials(S, wb)
-        co = K.round_coeffs(part)
-        r = K.mimc_multi(co[3 - length:])
+        co, r = K.round_tail(part, length)
         coeffs.append(co)
         rs.append(r)
         S = K.fold(S, r)

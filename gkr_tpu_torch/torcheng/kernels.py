@@ -15,8 +15,10 @@ sources.  Importing this module needs neither `nvcc` nor a card.
 
 Bounds below are for one H100 SXM (3.35 TB/s; 132 SMs x 64 32-bit IMAD per
 clock) at the layer engines' shapes, n = 2^20 entries, 64 B an element.
-A Montgomery product costs 264 32-bit IMADs in the kernels' 8 x 32-bit CIOS
-(128 32x32->64-bit products at two IMADs each, plus 8 low products).
+A Montgomery product is taken at the least IMAD count of the variants'
+SASS, moves left out (`probes.probe_sass`, as `chip_smoke.py` prints it:
+232.125 for the 8 x 32-bit CIOS `fr_mul`, 170.875 for the hash's
+`fr_mul_lat`).
 """
 
 from __future__ import annotations
@@ -42,10 +44,10 @@ SEG_LIMBS = 18               # limbs of a relaxed segment sum (csrc SEG_LIMBS)
 MIMC_ROUNDS = 91             # the device MiMC's constant table
 
 LAUNCHES = {"mont_mul": 0, "fold": 0, "phase1_eval": 0, "phase2_eval": 0,
-            "phase1_partials": 0, "phase2_partials": 0, "round_coeffs": 0,
+            "phase1_partials": 0, "phase2_partials": 0, "round_tail": 0,
             "mimc_multi": 0, "eq_table": 0, "seg_sum": 0, "normalize": 0,
             "normalize_mul": 0, "stack": 0, "u32_mul_chain": 0, "micro_op": 0,
-            "mont_chain_cios32": 0, "mont_chain_school": 0}
+            "mont_chain_cios32": 0, "mont_chain_school": 0, "mont_chain_lat": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -67,7 +69,7 @@ _SIGNATURES = {
     "gkr_eq_double": "vvlv",
     "gkr_seg_sum": "vvvvliv",
     "gkr_normalize": "vivvlv",
-    "gkr_round_coeffs": "vivv",
+    "gkr_round_tail": "viivivvv",
     "gkr_mimc_multi": "vivivv",
     "gkr_stack": "vvvvivlv",
     "gkr_u32_mul_chain": "vvvliv",
@@ -255,7 +257,7 @@ def fold(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 # folds its threads by a tree of field adds in shared memory and writes one
 # canonical (3, 16) partial.  The per-round engine's `phase*_eval` adds the
 # <= 1024 partials with `limbs.sum_mod`, as the JAX package's XLA reduce
-# does; the fused engine's `phase*_partials` hand them to `round_coeffs`.
+# does; the fused engine's `phase*_partials` hand them to `round_tail`.
 # Bounds at n = 2^20: phase 1 reads 268 MB = 80 us, against 3 * 2^19
 # products = 4.2e8 IMAD = 25 us; phase 2 reads 201 MB = 60 us, against
 # 6 * 2^19 products = 8.3e8 IMAD = 50 us.  Both bind on bytes.
@@ -357,7 +359,7 @@ def phase2_eval(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
 
 def phase1_partials(S: torch.Tensor) -> torch.Tensor:
     """The phase-1 sums of `phase1_eval` left as the grid's (G, 3, 16)
-    canonical per-block partials, for `round_coeffs`."""
+    canonical per-block partials, for `round_tail`."""
     if _check_stack(S, 4).type == "cpu":
         return phase1_partials_plain(S)
     return _partials("phase1_partials", S)
@@ -509,44 +511,27 @@ def normalize(t: torch.Tensor, scalar: torch.Tensor | None = None) -> torch.Tens
     return out
 
 
-# ------------------------------------------------------------ round coeffs
-# Replaces pallas_kernels.pl_round_coeffs (gkr_tpu/jaxeng/pallas_kernels.py
-# :479, kernel _finalize_kernel :449): the cross-block sum of the eval
-# kernels' <= 1024 partials and the degree-2 interpolation in one block of
-# 256 threads.  Tables halve every round, so there is no rescale factor.
-# Bound: 147 KB read at G = 1024 = 0.04 us and ~1100 field adds: far below
-# one launch; latency binds (the chain of log2(256) tree levels).
-
-def round_coeffs_plain(partials: torch.Tensor) -> torch.Tensor:
-    y0, y1, y2 = (_sum_mod_plain(partials[:, t]) for t in range(3))
-    c2 = mont_mul_plain(L.sub_mod(L.add_mod(y2, y0), L.add_mod(y1, y1)),
-                        L.const("INV2_LIMBS", partials.device))
-    return torch.stack([c2, L.sub_mod(L.sub_mod(y1, y0), c2), y0])
-
-
-def round_coeffs(partials: torch.Tensor) -> torch.Tensor:
-    """(G, 3, 16) canonical block sums of g(0), g(1), g(2) -> (3, 16)
-    coefficients (c2, c1, c0) of the degree-2 round polynomial."""
-    dev = _check_limbs(partials)
-    if partials.dim() != 3 or partials.shape[1] != 3 or partials.shape[0] < 1:
-        raise ValueError(f"partials of shape {tuple(partials.shape)}")
-    if dev.type == "cpu":
-        return round_coeffs_plain(partials)
-    partials = partials.contiguous()
-    out = torch.empty((3, N_LIMBS), dtype=L.LIMB_DTYPE, device=dev)
-    _launch("round_coeffs", dev, _load().gkr_round_coeffs, _ptr(partials),
-            partials.shape[0], _ptr(out))
-    return out
-
-
 # -------------------------------------------------------------------- MiMC
 # Replaces pallas_kernels.pl_mimc_multi (gkr_tpu/jaxeng/pallas_kernels.py
 # :813, kernels _make_mimc_kernel :769 and _make_mimc_kernel_block :739) and
-# jaxeng/mimc_dev.py: MiMC7-91 multi_hash with key 0 of the round's 2 or 3
-# coefficients, so the challenge never leaves the card.  One thread: 91
-# rounds of x^7 = 4 products each, 364 dependent products an element, 1092
-# for three.  The work is one dependent chain, so its bound is one thread's
-# issue rate, one IMAD a clock: 1092 x 264 IMAD = 146 us at 1.98 GHz.
+# jaxeng/mimc_dev.py: MiMC7-91 multi_hash with key 0, so a challenge never
+# leaves the card.  The fused rounds hash inside `round_tail`; `mimc_multi`
+# is the same device hash as a launch of its own, for r* (the pipelined
+# prover) and the bench's hash-latency probe.
+#
+# What bounds it: one dependent chain, 91 rounds of x^7 an element, run by
+# one thread, so its floor is one thread issuing one IMAD a clock: 1092
+# products for three elements x the least SASS IMAD count of a product
+# (`probes.probe_sass`).  The Pallas kernel's structure (one chain, a
+# throughput-shaped product) carried over to the card ran at ~1450 SM
+# clocks a product, held by the CIOS carry chain, and one warp issues the
+# wide 32x32->64-bit multiplies far below the card's IMAD rate.  The
+# design: the hash's own representation and product (`Fr29`, `fr_mul_lat`
+# and `fr_sqr_lat` in fr.cuh: 29-bit limbs, 64-bit columns with no carry
+# until the reduction, nothing reduced inside the chain); x^7 in three
+# dependent products (x^2, then x^3 and x^4 together, then x^3 x^4), x^2
+# and x^4 squares; the key table (k + c_i) mod p in shared memory, filled
+# by the block's other threads, so the chain never waits on device memory.
 # The plain version is the host's exact-integer hash (`mimc.Mimc7`): as
 # plain torch limb arithmetic each of the ~1100 serial products would be
 # some hundred tiny launches.
@@ -573,6 +558,51 @@ def mimc_multi(x: torch.Tensor) -> torch.Tensor:
     _launch("mimc_multi", dev, _load().gkr_mimc_multi, _ptr(x), x.shape[0],
             _ptr(_mimc_constants(dev)), MIMC_ROUNDS, _ptr(out))
     return out
+
+
+# -------------------------------------------------------------- round tail
+# Replaces pallas_kernels.pl_round_coeffs (gkr_tpu/jaxeng/pallas_kernels.py
+# :479, kernel _finalize_kernel :449) and, on the fused round chain,
+# pl_mimc_multi (:813): the cross-block sum of the eval kernels' <= 1024
+# partials, the degree-2 interpolation and the hash of the round's 2 or 3
+# coefficients, in one launch of one block.  The round is then three
+# launches: partials, tail, fold.  Tables halve every round, so there is no
+# rescale factor.  The sum is lazy (16-bit limbs into 32-bit accumulators,
+# warp shuffles, one reduction mod p a value).  Bound: 147 KB read at
+# G = 1024 = 0.04 us, against the hash's one-thread chain (see MiMC above),
+# which binds.
+
+def round_coeffs_plain(partials: torch.Tensor) -> torch.Tensor:
+    y0, y1, y2 = (_sum_mod_plain(partials[:, t]) for t in range(3))
+    c2 = mont_mul_plain(L.sub_mod(L.add_mod(y2, y0), L.add_mod(y1, y1)),
+                        L.const("INV2_LIMBS", partials.device))
+    return torch.stack([c2, L.sub_mod(L.sub_mod(y1, y0), c2), y0])
+
+
+def round_tail_plain(partials: torch.Tensor, length: int):
+    coeffs = round_coeffs_plain(partials)
+    return coeffs, mimc_multi_plain(coeffs[3 - length:])
+
+
+def round_tail(partials: torch.Tensor, length: int):
+    """(G, 3, 16) canonical block sums of g(0), g(1), g(2), G <= 1024 ->
+    ((3, 16) coefficients (c2, c1, c0) of the degree-2 round polynomial,
+    (16,) the round's challenge: MiMC7-91 multi_hash of coeffs[3 - length:],
+    key 0), length 2 or 3."""
+    dev = _check_limbs(partials)
+    if (partials.dim() != 3 or partials.shape[1] != 3
+            or not 1 <= partials.shape[0] <= MAX_EVAL_BLOCKS or length not in (2, 3)):
+        raise ValueError(f"round_tail of partials {tuple(partials.shape)}, "
+                         f"length {length}")
+    if dev.type == "cpu":
+        return round_tail_plain(partials, length)
+    partials = partials.contiguous()
+    coeffs = torch.empty((3, N_LIMBS), dtype=L.LIMB_DTYPE, device=dev)
+    r = torch.empty((N_LIMBS,), dtype=L.LIMB_DTYPE, device=dev)
+    _launch("round_tail", dev, _load().gkr_round_tail, _ptr(partials),
+            partials.shape[0], length, _ptr(_mimc_constants(dev)), MIMC_ROUNDS,
+            _ptr(coeffs), _ptr(r))
+    return coeffs, r
 
 
 # -------------------------------------------------------------------- stack
@@ -626,7 +656,7 @@ CHAIN_REPS = (16, 128)           # the peak probe's two depths (bench.py)
 MICRO_OPS = ("u32_add", "u32_mul", "u32_mul16", "u32_shift", "i32_mul",
              "f32_mul", "f32_fma")
 MICRO_REPS = (16, 1040, 4112)     # scripts/micro_vpu.py's REPS; two deep runs
-MONT_VARIANTS = ("cios32", "school")
+MONT_VARIANTS = ("cios32", "school", "lat")
 MONT_DEPTHS = (1, 9)             # scripts/tune_pallas_mul.py's lo and hi depth
 MONT_BLOCKS = (128, 256, 512, 1024)
 
@@ -747,14 +777,17 @@ def micro_op(op: str, a: torch.Tensor, b: torch.Tensor, reps: int = 16) -> torch
 # -------------------------------------------------------- Montgomery chain
 # Replaces scripts/tune_pallas_mul.py `build` (:92, pallas_call :97) with
 # the kernels of `make_kernel` (:78): x = x * b / R, `depth` times, per
-# element.  Two variants of the port's own product, chosen for this card:
-# "cios32", `fr_mul` (fr.cuh), the production one; "school", the full 8 x 8
-# word product and then `fr_redc_wide`.  Block widths 128 to 1024 threads
-# are template instantiations (`__launch_bounds__` sets the register budget
-# as a Pallas block width would).  Bound at 2^20 elements: 201 MB = 60 us,
-# against depth * 2^20 * 264 IMAD at 16.7 T/s = depth * 16.6 us: bytes bind
+# element.  Three variants of the port's own product, chosen for this card:
+# "cios32", `fr_mul` (fr.cuh), the throughput kernels' one; "school", the
+# full 8 x 8 word product and then `fr_redc_wide`; "lat", `fr_mul_lat`, the
+# hash's product on 29-bit limbs (x and b converted once, the chain in
+# that form, x converted back).  Block widths 128 to 1024 threads are
+# template instantiations (`__launch_bounds__` sets the register budget as
+# a Pallas block width would).  Bound at 2^20 elements: 201 MB = 60 us,
+# against depth * 2^20 * 171 IMAD at 16.7 T/s = depth * 10.7 us: bytes bind
 # at depth 1, operations at depth 9.  The probe's marginal time between
-# depths 1 and 9 is the product's cost without the memory traffic.
+# depths 1 and 9 is the product's cost without the memory traffic; at one
+# element (one thread) it is the latency of a dependent product.
 
 def mont_chain_plain(a: torch.Tensor, b: torch.Tensor, depth: int) -> torch.Tensor:
     x = a
@@ -766,8 +799,8 @@ def mont_chain_plain(a: torch.Tensor, b: torch.Tensor, depth: int) -> torch.Tens
 def mont_chain(a: torch.Tensor, b: torch.Tensor, depth: int,
                variant: str = "cios32", block: int = THREADS) -> torch.Tensor:
     """x = a, then `depth` times x = x * b / R mod p, elementwise over
-    (n, 16) canonical limbs; depth 1 or 9, variant "cios32" or "school",
-    block 128 to 1024 threads."""
+    (n, 16) canonical limbs; depth 1 or 9, variant "cios32", "school" or
+    "lat", block 128 to 1024 threads."""
     dev = _check_limbs(a, b)
     if (a.shape != b.shape or variant not in MONT_VARIANTS
             or depth not in MONT_DEPTHS or block not in MONT_BLOCKS):

@@ -228,6 +228,7 @@ def test_sass_imads_leave_out_moves():
     c = Counter({"IMAD.WIDE.U32": 5, "IMAD.HI.U32": 2, "IMAD": 3, "IMAD.X": 1,
                  "IMAD.MOV.U32": 7, "IMAD.MOV": 2, "IADD3": 9, "LOP3.LUT": 4})
     assert probes.imads(c) == 11
+    assert probes.wide_imads(c) == 5
 
 
 def test_rate_above_the_ceiling_raises():

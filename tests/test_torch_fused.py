@@ -196,16 +196,39 @@ def test_normalize_plain_matches_jax_normalize_relaxed(lin):
 
 @pytest.mark.parametrize("G", [1, 3, 7])
 def test_round_coeffs_plain_matches_interp3_and_host(G):
+    """The round tail's coefficients (its plain version, `round_coeffs_plain`,
+    on the CPU): the cross-block sum and the interpolation."""
     rng = np.random.default_rng(40 + G)
     vals = rand_field(rng, 3 * G)
     vals[:min(len(EDGE), 3 * G)] = EDGE[:3 * G]
     part = L.pack(vals).reshape(G, 3, 16)
-    got = K.round_coeffs(part)
+    got, _ = K.round_tail(part, 3)
+    assert torch.equal(got, K.round_coeffs_plain(part))
     y = [sum(vals[t::3]) % P for t in range(3)]
     jy = JL.pack(y)
     want = jnp.stack(jax.jit(JF._interp3)(jy[0], jy[1], jy[2]))
     assert np.array_equal(limbs_to_numpy(got), np.asarray(want))
     assert L.unpack(got) == jax_interpolate(list(zip(range(3), y)))
+
+
+@pytest.mark.parametrize("G, length", [(1, 2), (1, 3), (1024, 2), (1024, 3)])
+def test_round_tail_plain_matches_interp3_and_host_mimc7(G, length):
+    """round_tail: the coefficients of `_interp3` and, as the challenge, the
+    host Mimc7 of the round's last `length` of them; G = 1024 partials of
+    p - 1 are the largest sums the kernel's lazy limb sums take."""
+    rng = np.random.default_rng(45 + G + length)
+    vals = [P - 1] * (3 * G) if G == 1024 else rand_field(rng, 3 * G)
+    part = L.pack(vals).reshape(G, 3, 16)
+    co, r = K.round_tail(part, length)
+    assert co.shape == (3, 16) and r.shape == (16,)
+    y = [sum(vals[t::3]) % P for t in range(3)]
+    jy = JL.pack(y)
+    want = jnp.stack(jax.jit(JF._interp3)(jy[0], jy[1], jy[2]))
+    assert np.array_equal(limbs_to_numpy(co), np.asarray(want))
+    coeffs = L.unpack(co)[3 - length:]
+    assert L.unpack_scalar(r) == JaxMimc7().multi_hash(coeffs, 0)
+    with pytest.raises(ValueError):
+        K.round_tail(part, 4)
 
 
 def test_mimc_multi_plain_matches_host_mimc7():

@@ -199,8 +199,8 @@ def test_wrappers_take_plain_versions_on_cpu():
     K.phase2_eval(S3, S[0, 0])
     K.fold(S, S[0, 0])
     K.mont_mul(S, S)
-    K.round_coeffs(K.phase1_partials(S))
-    K.round_coeffs(K.phase2_partials(S3, S[0, 0]))
+    K.round_tail(K.phase1_partials(S), 3)
+    K.round_tail(K.phase2_partials(S3, S[0, 0]), 2)
     K.mimc_multi(S[0, :3])
     rel = K.seg_sum([S[:, 0], S[:, 1]], torch.tensor([2, 2, 5, 8], dtype=torch.int32))
     K.normalize(rel[0])
@@ -215,9 +215,9 @@ def test_wrappers_take_plain_versions_on_cpu():
         K.mont_chain(S[:, 0], S[:, 1], 1, variant)
     assert set(K.LAUNCHES) == {
         "mont_mul", "fold", "phase1_eval", "phase2_eval", "phase1_partials",
-        "phase2_partials", "round_coeffs", "mimc_multi", "eq_table",
+        "phase2_partials", "round_tail", "mimc_multi", "eq_table",
         "seg_sum", "normalize", "normalize_mul", "stack", "u32_mul_chain",
-        "micro_op", "mont_chain_cios32", "mont_chain_school"}
+        "micro_op", "mont_chain_cios32", "mont_chain_school", "mont_chain_lat"}
     assert not any(K.LAUNCHES.values())
     assert K._lib is None
     with pytest.raises(ValueError):
