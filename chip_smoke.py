@@ -7,6 +7,8 @@ Phases, each fatal on failure:
   1. card: name, power limit, SM clock (nvidia-smi's max and a spin's
      reading; the peaks take the larger), device count;
   2. build: the CUDA kernels from gkr_tpu_torch/csrc with one nvcc (sm_90a);
+     ptxas's registers and spills of every kernel; the round evals'
+     registers, local bytes and resident blocks an SM (fails on a spill);
      the SASS counts of the probes (IMADs a repetition of the peak chain, a
      Montgomery product of each variant, moves left out);
   3. kernels: the card's IMAD rate as the peak probe reads it, beside the
@@ -16,9 +18,13 @@ Phases, each fatal on failure:
      it (n = 2^20; the wiring plans of synth_circuit(20, 16); a bucket of
      70,000 gates; G = 1 and 1024 round partials; the probes' (16, 2^20)
      words and 2^20 elements), random and edge inputs, bit-equal (the f32
-     probe ops within a stated relative tolerance); the round tail's and
+     probe ops within a stated relative tolerance); the round evals also at
+     n = 2, a ragged 2 tiles + 3 a half and 2^16, phase 2 at wb = 0, 1,
+     p - 1 and a random value, `phase*_eval` in one launch with no other
+     kernel (torch.profiler); the round tail's and
      mimc_multi's challenges also against the host Mimc7 on 262 lists;
-     kernel and plain version timed with CUDA events, `index_add_` beside
+     kernel and plain version timed with CUDA events (the round evals also
+     at 2^16, launches queued), `index_add_` beside
      the segment sum, `torch.stack` beside the stack;
   4. per-round slice: prove(synth_circuit(20, 16)) with
      TorchBackend(fused=False), per-stage times, the port's verify, and the
@@ -57,7 +63,7 @@ import torch
 
 from gkr_tpu_torch.probes import (FP32_PER_SM_CLOCK, IMAD_PER_SM_CLOCK, event_ms,
                                   max_sm_clock_hz, peak_clock_hz, peak_per_s,
-                                  spin_clock_hz)
+                                  queued_ms, spin_clock_hz)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 ELEM_BYTES = 64                  # one field element: 16 int32 limbs
@@ -129,6 +135,16 @@ def with_edges(t: torch.Tensor, rows: list[int], L) -> torch.Tensor:
     e = torch.from_numpy(L.canonical_limbs(rows)).to(t.device)
     flat[:len(rows)] = e
     return t
+
+
+def stack_with_edges(rng, n: int, T: int, edges: list[int], L) -> torch.Tensor:
+    """A random (n, T, 16) stack on the card with the edge values in the
+    first entries of its lo half and, reversed, of its hi half."""
+    S = random_limbs(rng, (n, T), DEVICE)
+    k = min(len(edges), n // 2 * T)
+    with_edges(S[:n // 2], (edges * T)[:k], L)
+    with_edges(S[n // 2:], (edges[::-1] * T)[:k], L)
+    return S
 
 
 def rand_field(rng, P: int) -> int:
@@ -256,33 +272,101 @@ def phase_kernels(K, L, P, R, sm_clock_hz, imad_rate, imad_per_product):
                   f"{event_ms(lambda: K.fold(S, r), 30):.4f} ms", flush=True)
         del S, got, want
 
-    # phase-1 and phase-2 evaluations at n = 2^20
-    S1 = with_edges(random_limbs(rng, (N, 4), dev), edges * 4, L)
-    got = K.phase1_eval(S1)
-    want = K.phase1_eval_plain(S1)
+    # the per-round engine's evals at n = 2^20: one launch each, bit-equal,
+    # no plain-torch kernel (torch.profiler)
+    S1 = stack_with_edges(rng, N, 4, edges, L)
+    got, want = one_launch(K, "phase1_eval", lambda: K.phase1_eval(S1)), K.phase1_eval_plain(S1)
     record("phase1_eval", "gkr_tpu/jaxeng/pallas_kernels.py:318", got, want,
-           event_ms(lambda: K.phase1_partials(S1), 30),
+           event_ms(lambda: K.phase1_eval(S1), 30),
            event_ms(lambda: K.phase1_eval_plain(S1), 2, 1),
            N * 4 * ELEM_BYTES, 3 * (N // 2))
-    print(f"  phase1_eval with its second pass (sum_mod): "
-          f"{event_ms(lambda: K.phase1_eval(S1), 10):.4f} ms", flush=True)
+    only_eval_kernels("phase1_eval", lambda: K.phase1_eval(S1))
     del S1
-    S2 = with_edges(random_limbs(rng, (N, 3), dev), edges * 3, L)
-    for wb_int in (rand_field(rng, P), P - 1, 0):
+    S2 = stack_with_edges(rng, N, 3, edges, L)
+    for wb_int in (rand_field(rng, P), P - 1, 0, 1):
         wb = L.pack_scalar(wb_int, dev)
-        got = K.phase2_eval(S2, wb)
+        got = one_launch(K, "phase2_eval", lambda: K.phase2_eval(S2, wb))
         want = K.phase2_eval_plain(S2, wb)
         if not torch.equal(got, want):
             raise AssertionError(f"phase2_eval: disagrees at wb={wb_int}")
     record("phase2_eval", "gkr_tpu/jaxeng/pallas_kernels.py:368", got, want,
-           event_ms(lambda: K.phase2_partials(S2, wb), 30),
+           event_ms(lambda: K.phase2_eval(S2, wb), 30),
            event_ms(lambda: K.phase2_eval_plain(S2, wb), 2, 1),
-           N * 3 * ELEM_BYTES + ELEM_BYTES, 6 * (N // 2))
-    print(f"  phase2_eval with its second pass (sum_mod): "
-          f"{event_ms(lambda: K.phase2_eval(S2, wb), 10):.4f} ms", flush=True)
+           N * 3 * ELEM_BYTES + ELEM_BYTES,
+           3 * (N // 2) + 3 * K._eval_grid(N // 2))
+    only_eval_kernels("phase2_eval", lambda: K.phase2_eval(S2, wb))
     del S2
+    part = torch.zeros((K.TAIL_MAX_G, 3, 16), dtype=torch.int32, device=dev)
+    print(f"  the plain second pass the evals ran before (limbs.sum_mod of "
+          f"{K.TAIL_MAX_G} partials): {event_ms(lambda: L.sum_mod(part), 10):.4f} ms",
+          flush=True)
     torch.cuda.synchronize()
     return rows, record, bound
+
+
+def one_launch(K, name, fn):
+    """fn(), which must launch the kernel counted under `name` once and
+    nothing else of the port."""
+    before = dict(K.LAUNCHES)
+    out = fn()
+    launched = {k: v - before[k] for k, v in K.LAUNCHES.items() if v != before[k]}
+    if launched != {name: 1}:
+        raise AssertionError(f"{name}: launched {launched}, not one {name}")
+    return out
+
+
+def only_eval_kernels(name, fn, calls=5, tries=3):
+    """torch.profiler over warm calls of fn: their device kernels must be the
+    eval kernel alone, once a call (no plain-torch pass after it).  A
+    profile that recorded no device activity at all is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA}
+        if kernels:
+            break
+    print(f"    {name}: device kernels of {calls} calls (torch.profiler): {kernels}",
+          flush=True)
+    if (len(kernels) != 1 or "k_eval" not in next(iter(kernels))
+            or next(iter(kernels.values())) != calls):
+        raise AssertionError(f"{name}: {calls} calls ran {kernels}, not the eval "
+                             f"kernel alone once a call")
+
+
+def eval_kernel_report(K):
+    """The eval kernels' registers, spills and residency on this card; fails
+    on a spill."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for tables, label in ((4, "phase 1, k_eval<4>"), (3, "phase 2, k_eval<3>")):
+        a = K.eval_attrs(tables)
+        warps = a["blocks_per_sm"] * a["threads"] // 32
+        print(f"  {label}: {a['registers']} registers, {a['local_bytes']} bytes of "
+              f"local memory a thread; {a['smem_bytes']} bytes of shared memory a "
+              f"block ({K.EVAL_TILE}-entry tiles); {a['blocks_per_sm']} "
+              f"block(s) of {a['threads']} threads an SM = {warps} resident warps; "
+              f"grid at most {K.EVAL_MAX_BLOCKS} on {sms} SMs", flush=True)
+        if a["local_bytes"] or a["blocks_per_sm"] < 1:
+            raise AssertionError(f"{label}: spills or does not fit an SM: {a}")
+
+
+def ptxas_report(log: str) -> dict[str, str]:
+    """ptxas -v's lines, one per kernel: {mangled name: its properties}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = ""
+        elif name and ("registers" in line or "spill" in line):
+            out[name] += " " + line.split("info    :")[-1].strip()
+    return out
 
 
 def relaxed_edges(P: int, lin: int) -> list[list[int]]:
@@ -488,27 +572,47 @@ def phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit):
            library_ms=event_ms(lambda: torch.stack(tabs, dim=1), 10))
     del tabs, got, want
 
-    # the partials entry points of the eval kernels, at n = 2^20 and n = 2
-    for n in (2, N):
-        S1 = with_edges(random_limbs(rng, (n, 4), dev), (edges * 4)[:4 * n], L)
+    # the partials entry points: n = 2 (the last fused round), a ragged
+    # 2 tiles + 3 a half, 2^16 and 2^20 (more tiles than blocks), edge values,
+    # phase 2 at wb = 0, 1, p - 1 and a random value; timed at 2^20 (the
+    # kernels line) and at 2^16, launches queued behind a spin
+    wbs = [L.pack_scalar(v, dev) for v in (0, 1, P - 1, s_int)]
+    for n in (2, 2 * K.EVAL_TILE + 6, 1 << 16, N):
+        S1 = stack_with_edges(rng, n, 4, edges, L)
         got, want = K.phase1_partials(S1), K.phase1_partials_plain(S1)
         if not torch.equal(got, want):
             raise AssertionError(f"phase1_partials n={n}: disagrees")
+        S2 = stack_with_edges(rng, n, 3, edges, L)
+        for wb in wbs:
+            got2, want2 = K.phase2_partials(S2, wb), K.phase2_partials_plain(S2, wb)
+            if not torch.equal(got2, want2):
+                raise AssertionError(f"phase2_partials n={n}: disagrees at wb "
+                                     f"{L.unpack_scalar(wb)}")
+        G = K._eval_grid(n // 2)
+        print(f"  phase1_partials, phase2_partials n={n} (G = {G}): bit-equal "
+              f"(phase 2 at wb = 0, 1, p - 1, random)", flush=True)
+        if n == 1 << 16:
+            for name, fn, nbytes, products in (
+                    ("phase1_partials", lambda: K.phase1_partials(S1), n * 4 * ELEM_BYTES,
+                     3 * (n // 2)),
+                    ("phase2_partials", lambda: K.phase2_partials(S2, s), n * 3 * ELEM_BYTES
+                     + ELEM_BYTES, 3 * (n // 2) + 3 * G),
+                    ("phase1_eval", lambda: K.phase1_eval(S1), n * 4 * ELEM_BYTES,
+                     3 * (n // 2)),
+                    ("phase2_eval", lambda: K.phase2_eval(S2, s), n * 3 * ELEM_BYTES
+                     + ELEM_BYTES, 3 * (n // 2) + 3 * G)):
+                b_ms, b_by = bound(nbytes, products)
+                print(f"    {name} at 2^16: {queued_ms(fn, 200):.4f} ms queued "
+                      f"(table in L2), bound {b_ms:.4f} ms ({b_by})", flush=True)
     record("phase1_partials", "gkr_tpu/jaxeng/pallas_kernels.py:406", got, want,
            event_ms(lambda: K.phase1_partials(S1), 30),
            event_ms(lambda: K.phase1_partials_plain(S1), 2, 1),
            N * 4 * ELEM_BYTES, 3 * (N // 2))
-    del S1
-    for n in (2, N):
-        S2 = with_edges(random_limbs(rng, (n, 3), dev), (edges * 3)[:3 * n], L)
-        got, want = K.phase2_partials(S2, s), K.phase2_partials_plain(S2, s)
-        if not torch.equal(got, want):
-            raise AssertionError(f"phase2_partials n={n}: disagrees")
-    record("phase2_partials", "gkr_tpu/jaxeng/pallas_kernels.py:428", got, want,
+    record("phase2_partials", "gkr_tpu/jaxeng/pallas_kernels.py:428", got2, want2,
            event_ms(lambda: K.phase2_partials(S2, s), 30),
            event_ms(lambda: K.phase2_partials_plain(S2, s), 2, 1),
-           N * 3 * ELEM_BYTES + ELEM_BYTES, 6 * (N // 2))
-    del S2
+           N * 3 * ELEM_BYTES + ELEM_BYTES, 3 * (N // 2) + 3 * K._eval_grid(N // 2))
+    del S1, S2
     torch.cuda.synchronize()
 
 
@@ -563,7 +667,7 @@ def phase_profile(prove, make_backend, circuit, w, wall_s):
     if total_s == 0:
         print("  profiler: no device time recorded (busy share not measured)",
               flush=True)
-        return
+        return {}
     print(f"  device busy {total_s:.3f} s: {100 * total_s / wall_s:.1f}% of the "
           f"unprofiled prove's {wall_s:.3f} s ({prof_wall:.3f} s with the "
           f"profiler on)", flush=True)
@@ -577,6 +681,23 @@ def phase_profile(prove, make_backend, circuit, w, wall_s):
                 and getattr(e, "device_type", None) == DeviceType.CPU):
             print(f"    {e.cpu_time_total / 1e3:9.3f} ms  {e.count:3d} x  {e.key}",
                   flush=True)
+    return {e.key: (dev_us(e) / 1e3, e.count) for e in events}
+
+
+def eval_totals_vs_bounds(K, circuit, bound, device_ms):
+    """Each round eval kernel's [5b] total beside its bound summed over the
+    prove's rounds (the tables halve every round: n = 2^k_next down to 2)."""
+    for tables, name in ((4, "k_eval<4>"), (3, "k_eval<3>")):
+        total = 0.0
+        for layer in circuit.layers:
+            for j in range(layer.k_next):
+                n = 1 << (layer.k_next - j)
+                extra = 3 * K._eval_grid(n // 2) if tables == 3 else 0
+                total += bound(n * tables * ELEM_BYTES + (tables == 3) * ELEM_BYTES,
+                               3 * (n // 2) + extra)[0]
+        ms, count = next((v for k, v in device_ms.items() if name in k), (0.0, 0))
+        print(f"  {name}: {ms:.3f} ms over {count} launches in [5b], against its "
+              f"bound summed over those rounds {total:.4f} ms", flush=True)
 
 
 def phase_card_vs_cpu(F, prove, verify, TorchBackend, synth_circuit, mle_struct,
@@ -810,9 +931,13 @@ def main() -> int:
     t0 = time.perf_counter()
     path = K.build()
     print(f"  {path.name}: {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in K.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Function properties" in line:
-            print("  ptxas: " + line.strip(), flush=True)
+    ptxas = ptxas_report(K.BUILD_LOG)
+    for name, props in ptxas.items():
+        print(f"  ptxas: {name}:{props}", flush=True)
+    for name, props in ptxas.items():
+        if "k_eval" in name and " 0 bytes spill stores, 0 bytes spill loads" not in props:
+            raise AssertionError(f"ptxas: {name} spills:{props}")
+    eval_kernel_report(K)
     sass = probes.probe_sass()
     print(f"  SASS: {sass}", flush=True)
     if sass["peak_imad_per_rep"] != K.CHAINS:
@@ -874,7 +999,8 @@ def main() -> int:
         print(f"    {name}: {sec:.3f} s", flush=True)
     print("[5b] where the fused prove's device time goes, plans cached "
           "(torch.profiler)", flush=True)
-    phase_profile(prove, lambda: backend, circuit, w, wall_warm)
+    device_ms = phase_profile(prove, lambda: backend, circuit, w, wall_warm)
+    eval_totals_vs_bounds(K, circuit, bound, device_ms)
     print(f"  fused prove {wall_f:.3f} s (plans built), {wall_warm:.3f} s "
           f"(cached), against per-round {wall_pr:.3f} s (host clock, this run)",
           flush=True)

@@ -116,9 +116,32 @@ __device__ __forceinline__ Fr fr_sub(const Fr& a, const Fr& b) {
   return d;
 }
 
+// 2a - b + p for canonical a, b: a value below 3p, not reduced (an operand
+// of fr_mul, which takes one below 3p).
+__device__ __forceinline__ Fr fr_twice_minus(const Fr& a, const Fr& b) {
+  Fr d;
+  uint32_t borrow = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint64_t v = (uint64_t)FR_P[j] - b.w[j] - borrow;
+    d.w[j] = (uint32_t)v;
+    borrow = (uint32_t)(v >> 63);
+  }
+  uint32_t carry = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint64_t v = (uint64_t)d.w[j] + a.w[j] + a.w[j] + carry;
+    d.w[j] = (uint32_t)v;
+    carry = (uint32_t)(v >> 32);
+  }
+  return d;
+}
+
 // Montgomery product a * b / 2^256 mod p (CIOS, 8 x 32-bit words).
 // Per product: 64 + 64 32x32->64-bit multiply-adds and 8 low multiplies.
 // Each 64-bit sum t + x*y + c is at most 2^64 - 1, so no sum overflows.
+// a may be any value below 3p (b below p): the result, below
+// a b / 2^256 + p < 1.57 p, is still canonical after one subtraction.
 __device__ __forceinline__ Fr fr_mul(const Fr& a, const Fr& b) {
   uint32_t t[10];
 #pragma unroll

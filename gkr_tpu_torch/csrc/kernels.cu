@@ -7,8 +7,10 @@
 //
 //   gkr_mont_mul        a * b / R elementwise        pallas_kernels.pl_mont_mul_T
 //   gkr_fold            lo + r * (hi - lo)           pallas_kernels.pl_fold
-//   gkr_phase1_partials per-block sums of g(0,1,2)   pl_phase1_eval / pl_phase1_partials
-//   gkr_phase2_partials per-block sums of g(0,1,2)   pl_phase2_eval / pl_phase2_partials
+//   gkr_phase_eval      per-block sums of g(0,1,2)   pl_phase{1,2}_partials
+//                       (k_eval<4>, k_eval<3>), or   pl_phase{1,2}_eval
+//                       their sum in the same launch
+//   gkr_eval_attrs      the evals' registers, spills, residency
 //   gkr_eq_double       one doubling of the chi table  pl_eq_table_T
 //   gkr_seg_sum         per-bucket sums, key-sorted  pl_seg_sum_T
 //   gkr_normalize       relaxed -> canonical (x s)   pl_normalize_T / pl_normalize_mul_T
@@ -54,73 +56,307 @@ k_fold(const uint32_t* __restrict__ S, const uint32_t* __restrict__ r,
   fr_store(out + 16 * i, fr_add(lo, fr_mul(fr_sub(hi, lo), rr)));
 }
 
-// ------------------------------------------------------- eval block sums
-// Folds the block's per-thread canonical sums by a tree of field adds in
-// shared memory; each block writes one (3, 16) canonical partial.
-__device__ __forceinline__ void block_reduce_store(Fr acc[3],
-                                                   uint32_t* partials) {
-  __shared__ Fr sh[3][THREADS];
-  const int tid = threadIdx.x;
+// ------------------------------------------------------------ round evals
+// Replace pallas_kernels.pl_phase1_partials / pl_phase2_partials and, with
+// their sum in the same launch, pl_phase1_eval / pl_phase2_eval.  One kernel
+// template for both phases (T = 4: [W, HA1, HA2, HM]; T = 3: [W, FA,
+// FMwb]).  A round's sum at t = 0, 1, 2 is, in both phases,
+//   y_t = sum_s u_t(s) W_t(s) + c * sum_s l_t(s),   X_0 = lo, X_1 = hi,
+//   X_2 = 2 hi - lo,
+// with u = HA1 + HM, l = HA2, c = 1 in phase 1 and u = FA + FMwb, l = FA,
+// c = wb in phase 2: FA (wb + W) + FMwb W = W (FA + FMwb) + wb FA, so phase 2
+// takes three products an entry (the JAX formula, kept by the plain
+// version, takes six) and one by wb a block and t.  The linear sums are
+// taken at lo and hi only: sum l_2 = 2 sum l_1 - sum l_0.
+//
+// What bounds it: the bytes (80 us at n = 2^20 in phase 1, 60 us in phase
+// 2), but a Montgomery product issues far slower than its IMAD count, and
+// at the occupancy shared memory leaves, the 3 n/2 products alone take
+// about as long as the loads (each timed alone by a build that skipped the
+// other), so the design keeps both streams full and overlapped.
+//
+// Tiles: entries [k TILE, (k+1) TILE) of lo and the same range of hi are
+// tile k, two contiguous byte ranges; block b walks tiles b, b + G, ... (a
+// persistent grid of one block an SM).  A ring of EVAL_STAGES tiles in
+// dynamic shared memory is filled by 16-byte cp.async copies (coalesced:
+// neighbouring threads copy neighbouring 16 bytes), two tiles in flight
+// while the block computes on the third, one barrier a tile; each entry
+// sits at a pitch of its size plus 16 bytes, so the 16-byte reads of
+// neighbouring entries hit 8 distinct bank groups.  Three threads share an
+// entry, one point t each (warp-uniform), and read its limbs from shared
+// memory as they need them: one product a thread a tile, on 12 warps an SM
+// (one thread an entry, on 6 warps, ran slower: the products bind).  W_2
+// enters its product unreduced (below 3p, fr_twice_minus), which shortens
+// the t = 2 thread, the longest.
+//
+// Sums are lazy: every canonical product and linear term is added into a
+// 9-word accumulator (value < 2^288, so no carry is lost below 2^34 terms;
+// tests/test_torch_eval.py models each bound), folded by warp shuffles and
+// then across warps, and reduced mod p once a block and accumulator (REDC,
+// then one product, by R^2 or, for the linear sums, by c R^2).  Each block
+// writes its canonical (3, 16) partial.  With `out` given (the per-round
+// engine's eval), the last block to finish (a ticket counter, incremented
+// after a __threadfence) sums the G partials as round_tail does and writes
+// y (3, 16); it then resets the counter to 0.
+#define EVAL_TILE 128            // entries of a tile
+#define EVAL_THREADS (3 * EVAL_TILE)  // one thread a point t of an entry
+#define EVAL_STAGES 3            // tiles in the ring: two in flight, one computed
+#define TAIL_WORDS 48            // (3, 16) limbs of one partial
+#define TAIL_MAX_G 1024          // partials a round_tail takes at most
+
+struct Acc9 {
+  uint32_t w[9];
+};
+
+__device__ __forceinline__ void acc9_zero(Acc9& a) {
 #pragma unroll
-  for (int t = 0; t < 3; ++t) sh[t][tid] = acc[t];
-  __syncthreads();
-  for (int off = THREADS / 2; off > 0; off >>= 1) {
-    if (tid < off) {
+  for (int j = 0; j < 9; ++j) a.w[j] = 0u;
+}
+
+// a += b (9 words), one carry chain; the sums it takes stay below 2^288.
+__device__ __forceinline__ void acc9_add(Acc9& a, const Acc9& b) {
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32 %8, %8, %17;"
+      : "+r"(a.w[0]), "+r"(a.w[1]), "+r"(a.w[2]), "+r"(a.w[3]), "+r"(a.w[4]),
+        "+r"(a.w[5]), "+r"(a.w[6]), "+r"(a.w[7]), "+r"(a.w[8])
+      : "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]),
+        "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]), "r"(b.w[8]));
+}
+
+// a += x, a canonical element.
+__device__ __forceinline__ void acc9_add(Acc9& a, const Fr& x) {
+  Acc9 b;
 #pragma unroll
-      for (int t = 0; t < 3; ++t) sh[t][tid] = fr_add(sh[t][tid], sh[t][tid + off]);
+  for (int j = 0; j < 8; ++j) b.w[j] = x.w[j];
+  b.w[8] = 0u;
+  acc9_add(a, b);
+}
+
+// A lazy sum a (value < 2^288 < p 2^256) -> a / R mod p, canonical (REDC);
+// a mod p is one product by R^2 more.
+__device__ __forceinline__ Fr acc9_redc(const Acc9& a) {
+  uint32_t T[17];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) T[j] = a.w[j];
+#pragma unroll
+  for (int j = 9; j < 17; ++j) T[j] = 0u;
+  return fr_redc_wide(T);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The cross-block sum of G <= TAIL_MAX_G canonical (3, 16) partials into
+// y[0..2] (shared), called by every thread of an NT-thread block.  Lazy:
+// each 16-bit limb is added as it is into a 32-bit accumulator
+// (G * (2^16 - 1) < 2^26), the threads fold theirs by warp shuffles and then
+// across warps, and threads 0..2 each turn one y_t's relaxed limbs (value
+// < 1024 p) into words and reduce them mod p (REDC, then x R^2, as
+// k_normalize).  The partials are read through L2 (__ldcg): in a one-launch
+// eval other blocks of the grid wrote them.
+template <int NT>
+__device__ void sum_partials(const uint32_t* partials, int G, Fr* y) {
+  __shared__ uint32_t red[NT / 32][TAIL_WORDS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint32_t acc[TAIL_WORDS];
+#pragma unroll
+  for (int l = 0; l < TAIL_WORDS; ++l) acc[l] = 0u;
+  for (int g = tid; g < G; g += NT) {
+    const uint4* q = reinterpret_cast<const uint4*>(partials + TAIL_WORDS * g);
+#pragma unroll
+    for (int k = 0; k < TAIL_WORDS / 4; ++k) {
+      const uint4 v = __ldcg(q + k);
+      acc[4 * k] += v.x;
+      acc[4 * k + 1] += v.y;
+      acc[4 * k + 2] += v.z;
+      acc[4 * k + 3] += v.w;
     }
-    __syncthreads();
   }
-  if (tid == 0) {
 #pragma unroll
-    for (int t = 0; t < 3; ++t) fr_store(partials + 48 * blockIdx.x + 16 * t, sh[t][0]);
+  for (int l = 0; l < TAIL_WORDS; ++l) {
+    uint32_t v = acc[l];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][l] = v;
+  }
+  __syncthreads();
+  if (tid < 3) {
+    uint32_t T[17];
+    uint32_t c = 0u;
+#pragma unroll
+    for (int l = 0; l < 16; ++l) {
+      uint32_t s = c;
+#pragma unroll
+      for (int w = 0; w < NT / 32; ++w) s += red[w][16 * tid + l];
+      const uint32_t limb = s & 0xffffu;
+      c = s >> 16;
+      if (l & 1) T[l >> 1] |= limb << 16;
+      else T[l >> 1] = limb;
+    }
+    T[8] = c;
+#pragma unroll
+    for (int j = 9; j < 17; ++j) T[j] = 0u;
+    y[tid] = fr_mul(fr_redc_wide(T), fr_const(FR_R2));
+  }
+  __syncthreads();
+}
+
+template <int T>
+struct EvalLayout {
+  static constexpr int UNITS = 4 * T;                 // 16-byte units of an entry
+  static constexpr int PITCH = UNITS + 1;             // odd: conflict-free reads
+  static constexpr int HALF = EVAL_TILE * PITCH;      // lo (or hi) of a stage
+  static constexpr int STAGE = 2 * HALF;
+  static constexpr int SMEM = EVAL_STAGES * STAGE * 16;   // bytes
+  static constexpr int U_A = 1, U_B = T - 1;          // u = X[U_A] + X[U_B]
+  static constexpr int LIN = T == 4 ? 2 : 1;          // l = X[LIN]
+};
+
+// Copies tile k (if there is one) into ring stage `dst`; one commit group.
+template <int T>
+__device__ __forceinline__ void eval_issue(uint4* dst, const uint4* src,
+                                           long long k, long long n_tiles,
+                                           long long half) {
+  using Lay = EvalLayout<T>;
+  if (k < n_tiles) {
+    const long long e0 = k * EVAL_TILE;
+    const int m = (int)min((long long)EVAL_TILE, half - e0);
+    const uint4* lo = src + e0 * Lay::UNITS;
+    const uint4* hi = src + (half + e0) * Lay::UNITS;
+    for (int q = threadIdx.x; q < m * Lay::UNITS; q += EVAL_THREADS) {
+      const int e = q / Lay::UNITS, c = q - e * Lay::UNITS;
+      cp_async16(dst + e * Lay::PITCH + c, lo + q);
+      cp_async16(dst + Lay::HALF + e * Lay::PITCH + c, hi + q);
+    }
+  }
+  cp_async_commit();
+}
+
+// One point t of one entry: v += u_t W_t, and l += l_t at t = 0, 1.
+template <int T>
+__device__ __forceinline__ void eval_point(int t, const uint32_t* lo,
+                                           const uint32_t* hi, Acc9& v, Acc9& l) {
+  using Lay = EvalLayout<T>;
+  if (t < 2) {
+    const uint32_t* x = t ? hi : lo;
+    const Fr u = fr_add(fr_load(x + 16 * Lay::U_A), fr_load(x + 16 * Lay::U_B));
+    acc9_add(v, fr_mul(u, fr_load(x)));
+    acc9_add(l, fr_load(x + 16 * Lay::LIN));
+  } else {
+    const Fr u0 = fr_add(fr_load(lo + 16 * Lay::U_A), fr_load(lo + 16 * Lay::U_B));
+    const Fr u1 = fr_add(fr_load(hi + 16 * Lay::U_A), fr_load(hi + 16 * Lay::U_B));
+    const Fr w2 = fr_twice_minus(fr_load(hi), fr_load(lo));
+    acc9_add(v, fr_mul(w2, fr_add(u1, fr_sub(u1, u0))));
   }
 }
 
-// S: (n, 4, 16) = [W, HA1, HA2, HM]; half = n/2.
-// y_t = sum_s (HA1_t + HM_t) * W_t + HA2_t, X_0 = lo, X_1 = hi, X_2 = 2hi - lo.
-__global__ void __launch_bounds__(THREADS)
-k_phase1_partials(const uint32_t* __restrict__ S, uint32_t* __restrict__ partials,
-                  long long half) {
-  Fr acc[3] = {fr_zero(), fr_zero(), fr_zero()};
-  for (long long s = (long long)blockIdx.x * THREADS + threadIdx.x; s < half;
-       s += (long long)gridDim.x * THREADS) {
-    const uint32_t* lo = S + 64 * s;
-    const uint32_t* hi = S + 64 * (s + half);
-    Fr w0 = fr_load(lo), a0 = fr_load(lo + 16), h0 = fr_load(lo + 32), m0 = fr_load(lo + 48);
-    Fr w1 = fr_load(hi), a1 = fr_load(hi + 16), h1 = fr_load(hi + 32), m1 = fr_load(hi + 48);
-    acc[0] = fr_add(acc[0], fr_add(fr_mul(fr_add(a0, m0), w0), h0));
-    acc[1] = fr_add(acc[1], fr_add(fr_mul(fr_add(a1, m1), w1), h1));
-    Fr w2 = fr_add(w1, fr_sub(w1, w0));
-    Fr a2 = fr_add(a1, fr_sub(a1, a0));
-    Fr h2 = fr_add(h1, fr_sub(h1, h0));
-    Fr m2 = fr_add(m1, fr_sub(m1, m0));
-    acc[2] = fr_add(acc[2], fr_add(fr_mul(fr_add(a2, m2), w2), h2));
-  }
-  block_reduce_store(acc, partials);
-}
+// S: (n, T, 16), half = n/2; wbp: phase 2's wb (null in phase 1);
+// partials: (gridDim.x, 3, 16); out, ticket: the one-launch eval (or null).
+// Thread tid takes point t = tid / EVAL_TILE (one t a warp) of entry
+// tid % EVAL_TILE of each tile.
+template <int T>
+__global__ void __launch_bounds__(EVAL_THREADS, 1)
+k_eval(const uint32_t* __restrict__ S, const uint32_t* __restrict__ wbp,
+       uint32_t* partials, long long half, unsigned* ticket,
+       uint32_t* __restrict__ out) {
+  using Lay = EvalLayout<T>;
+  constexpr int WARPS_T = EVAL_TILE / 32;             // warps of one point t
+  extern __shared__ uint4 ring[];
+  __shared__ Acc9 red[EVAL_THREADS / 32][2];
+  __shared__ Fr ys[5], z;
+  __shared__ bool last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = tid / EVAL_TILE, e = tid - t * EVAL_TILE;
+  const long long G = gridDim.x;
+  const long long n_tiles = (half + EVAL_TILE - 1) / EVAL_TILE;
+  const uint4* src = reinterpret_cast<const uint4*>(S);
 
-// S: (n, 3, 16) = [W, FA, FMwb]; wb: one element.
-// y_t = sum_s FA_t * (wb + W_t) + FMwb_t * W_t.
-__global__ void __launch_bounds__(THREADS)
-k_phase2_partials(const uint32_t* __restrict__ S, const uint32_t* __restrict__ wbp,
-                  uint32_t* __restrict__ partials, long long half) {
-  Fr wb = fr_load(wbp);
-  Fr acc[3] = {fr_zero(), fr_zero(), fr_zero()};
-  for (long long s = (long long)blockIdx.x * THREADS + threadIdx.x; s < half;
-       s += (long long)gridDim.x * THREADS) {
-    const uint32_t* lo = S + 48 * s;
-    const uint32_t* hi = S + 48 * (s + half);
-    Fr w0 = fr_load(lo), f0 = fr_load(lo + 16), g0 = fr_load(lo + 32);
-    Fr w1 = fr_load(hi), f1 = fr_load(hi + 16), g1 = fr_load(hi + 32);
-    acc[0] = fr_add(acc[0], fr_add(fr_mul(f0, fr_add(wb, w0)), fr_mul(g0, w0)));
-    acc[1] = fr_add(acc[1], fr_add(fr_mul(f1, fr_add(wb, w1)), fr_mul(g1, w1)));
-    Fr w2 = fr_add(w1, fr_sub(w1, w0));
-    Fr f2 = fr_add(f1, fr_sub(f1, f0));
-    Fr g2 = fr_add(g1, fr_sub(g1, g0));
-    acc[2] = fr_add(acc[2], fr_add(fr_mul(f2, fr_add(wb, w2)), fr_mul(g2, w2)));
+  Acc9 v, l;
+  acc9_zero(v);
+  acc9_zero(l);
+  // tiles k and k + G are in flight while the block computes on k - G; the
+  // one barrier a tile also frees the stage that tile k + 2G then takes
+#pragma unroll
+  for (int j = 0; j < EVAL_STAGES - 1; ++j)
+    eval_issue<T>(ring + j * Lay::STAGE, src, blockIdx.x + j * G, n_tiles, half);
+  int stage = 0;
+  for (long long k = blockIdx.x; k < n_tiles; k += G) {
+    cp_async_wait<EVAL_STAGES - 2>();
+    __syncthreads();
+    const int refill = stage == 0 ? EVAL_STAGES - 1 : stage - 1;
+    eval_issue<T>(ring + refill * Lay::STAGE, src, k + (EVAL_STAGES - 1) * G, n_tiles, half);
+    if (k * EVAL_TILE + e < half) {
+      const uint32_t* lo =
+          reinterpret_cast<const uint32_t*>(ring + stage * Lay::STAGE + e * Lay::PITCH);
+      eval_point<T>(t, lo, lo + 4 * Lay::HALF, v, l);
+    }
+    stage = stage + 1 == EVAL_STAGES ? 0 : stage + 1;
   }
-  block_reduce_store(acc, partials);
+  cp_async_wait<0>();
+
+  // the block's sums: warp shuffles, then the warps of each point, one
+  // reduction each of V_0, V_1, V_2, L_0, L_1
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Acc9 ov, ol;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      ov.w[j] = __shfl_down_sync(0xffffffffu, v.w[j], off);
+      ol.w[j] = __shfl_down_sync(0xffffffffu, l.w[j], off);
+    }
+    acc9_add(v, ov);
+    acc9_add(l, ol);
+  }
+  if (lane == 0) {
+    red[warp][0] = v;
+    red[warp][1] = l;
+  }
+  __syncthreads();
+  // ys: V_t mod p, and L_0, L_1 left as REDC gives them (L / R); z = R^2,
+  // or wb R^2 in phase 2, so that c L_t = fr_mul(L_t / R, z): every thread
+  // of the tail takes at most two dependent products
+  if (tid < 5) {
+    const int g = tid < 3 ? tid : tid - 3, which = tid < 3 ? 0 : 1;
+    Acc9 s = red[g * WARPS_T][which];
+#pragma unroll
+    for (int w = 1; w < WARPS_T; ++w) acc9_add(s, red[g * WARPS_T + w][which]);
+    const Fr r = acc9_redc(s);
+    ys[tid] = tid < 3 ? fr_mul(r, fr_const(FR_R2)) : r;
+  } else if (tid == 5) {
+    z = wbp ? fr_mul(fr_load(wbp), fr_const(FR_R2)) : fr_const(FR_R2);
+  }
+  __syncthreads();
+  if (tid < 3) {
+    const Fr l = tid < 2 ? ys[3 + tid] : fr_add(ys[4], fr_sub(ys[4], ys[3]));
+    fr_store(partials + 48 * blockIdx.x + 16 * tid, fr_add(ys[tid], fr_mul(l, z)));
+    if (out) __threadfence();
+  }
+  if (!out) return;
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1u) == (unsigned)(G - 1);
+  __syncthreads();
+  if (!last) return;
+  sum_partials<EVAL_THREADS>(partials, (int)G, ys);
+  if (tid < 3) fr_store(out + 16 * tid, ys[tid]);
+  if (tid == 0) *ticket = 0u;
 }
 
 // ------------------------------------------------------------- eq table
@@ -327,69 +563,21 @@ k_mimc_multi(const uint32_t* __restrict__ x, int len,
 // --------------------------------------------------------------- round tail
 // The end of a fused round in one launch: partials -> coefficients -> the
 // round's challenge.  partials: G <= 1024 canonical (3, 16) block sums of
-// g(0), g(1), g(2).  The sums are lazy: each 16-bit limb is added as it is
-// into a 32-bit accumulator (G * (2^16 - 1) < 2^26), the block's threads
-// fold theirs by warp shuffles and then across warps, and threads 0..2 each
-// turn one y_t's relaxed limbs (value < 1024 p) into words and reduce them
-// mod p (REDC, then x R^2, as k_normalize).  Thread 0 interpolates c2 =
+// g(0), g(1), g(2), summed lazily (sum_partials).  Thread 0 interpolates c2 =
 // (y2 + y0 - 2 y1) / 2, c1 = y1 - y0 - c2, c0 = y0, writes coeffs (3, 16) =
 // (c2, c1, c0), and the block hashes coeffs[3 - length:] (mimc_multi_block)
 // into r (16,).
 #define TAIL_THREADS 256
-#define TAIL_WORDS 48            // (3, 16) limbs of one partial
-#define TAIL_MAX_G 1024          // the eval kernels' grid at most (MAX_EVAL_BLOCKS)
 
 __global__ void __launch_bounds__(TAIL_THREADS)
 k_round_tail(const uint32_t* __restrict__ partials, int G, int length,
              const uint32_t* __restrict__ cts, int n_rounds,
              uint32_t* coeffs, uint32_t* __restrict__ r_out) {
-  __shared__ uint32_t red[TAIL_THREADS / 32][TAIL_WORDS];
   __shared__ Fr y[3];
   __shared__ Fr29 kc[MIMC_MAX_ROUNDS];
   __shared__ Fr r_sh;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  uint32_t acc[TAIL_WORDS];
-#pragma unroll
-  for (int l = 0; l < TAIL_WORDS; ++l) acc[l] = 0u;
-  for (int g = tid; g < G; g += TAIL_THREADS) {
-    const uint4* q = reinterpret_cast<const uint4*>(partials + TAIL_WORDS * g);
-#pragma unroll
-    for (int k = 0; k < TAIL_WORDS / 4; ++k) {
-      const uint4 v = q[k];
-      acc[4 * k] += v.x;
-      acc[4 * k + 1] += v.y;
-      acc[4 * k + 2] += v.z;
-      acc[4 * k + 3] += v.w;
-    }
-  }
-#pragma unroll
-  for (int l = 0; l < TAIL_WORDS; ++l) {
-    uint32_t v = acc[l];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[warp][l] = v;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    uint32_t T[17];
-    uint32_t c = 0u;
-#pragma unroll
-    for (int l = 0; l < 16; ++l) {
-      uint32_t s = c;
-#pragma unroll
-      for (int w = 0; w < TAIL_THREADS / 32; ++w) s += red[w][16 * tid + l];
-      const uint32_t limb = s & 0xffffu;
-      c = s >> 16;
-      if (l & 1) T[l >> 1] |= limb << 16;
-      else T[l >> 1] = limb;
-    }
-    T[8] = c;
-#pragma unroll
-    for (int j = 9; j < 17; ++j) T[j] = 0u;
-    y[tid] = fr_mul(fr_redc_wide(T), fr_const(FR_R2));
-  }
-  __syncthreads();
+  const int tid = threadIdx.x;
+  sum_partials<TAIL_THREADS>(partials, G, y);
   if (tid == 0) {
     const Fr y0 = y[0], y1 = y[1], y2 = y[2];
     const Fr c2 = fr_half(fr_sub(fr_add(y2, y0), fr_add(y1, y1)));
@@ -426,6 +614,20 @@ static inline unsigned blocks_for(long long n) {
   return (unsigned)((n + THREADS - 1) / THREADS);
 }
 
+// Above 48 KB a block's dynamic shared memory must be allowed per kernel,
+// once for each device.
+template <int T>
+static cudaError_t eval_attr() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
+  e = cudaFuncSetAttribute(k_eval<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           EvalLayout<T>::SMEM);
+  if (e == cudaSuccess && dev < 64) done[dev] = true;
+  return e;
+}
+
 extern "C" {
 
 int gkr_mont_mul(const void* a, const void* b, void* out, long long n,
@@ -441,18 +643,51 @@ int gkr_fold(const void* S, const void* r, void* out, long long m, void* stream)
   return (int)cudaGetLastError();
 }
 
-int gkr_phase1_partials(const void* S, void* partials, long long half,
-                        int grid, void* stream) {
-  k_phase1_partials<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)S, (uint32_t*)partials, half);
+// tables 4: phase 1 (wb null), 3: phase 2.  With out and ticket null the
+// launch leaves the grid's partials; with both given it also writes the sum
+// y (3, 16), and ticket (one unsigned, 0 before the launch) is 0 after it.
+int gkr_phase_eval(int tables, const void* S, const void* wb, void* partials,
+                   long long half, int grid, void* ticket, void* out,
+                   void* stream) {
+  if (half < 1 || grid < 1 || grid > TAIL_MAX_G || (tables == 4) != (wb == nullptr) ||
+      (tables != 3 && tables != 4) || (ticket == nullptr) != (out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = tables == 4 ? eval_attr<4>() : eval_attr<3>();
+  if (e != cudaSuccess) {
+    cudaGetLastError();       // not left behind for the next launch's check
+    return (int)e;
+  }
+  auto kernel = tables == 4 ? k_eval<4> : k_eval<3>;
+  const int smem = tables == 4 ? EvalLayout<4>::SMEM : EvalLayout<3>::SMEM;
+  kernel<<<grid, EVAL_THREADS, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)S, (const uint32_t*)wb, (uint32_t*)partials, half,
+      (unsigned*)ticket, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 
-int gkr_phase2_partials(const void* S, const void* wb, void* partials,
-                        long long half, int grid, void* stream) {
-  k_phase2_partials<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)S, (const uint32_t*)wb, (uint32_t*)partials, half);
-  return (int)cudaGetLastError();
+// The eval kernel of `tables` as built and as it runs: attrs[0] registers a
+// thread, attrs[1] local (spill) bytes a thread, attrs[2] resident blocks an
+// SM at its dynamic shared memory, attrs[3] that shared memory in bytes,
+// attrs[4] threads a block.
+int gkr_eval_attrs(int tables, void* attrs) {
+  if (tables != 3 && tables != 4) return (int)cudaErrorInvalidValue;
+  int* a = (int*)attrs;
+  cudaFuncAttributes fa;
+  cudaError_t e = tables == 4 ? cudaFuncGetAttributes(&fa, k_eval<4>)
+                              : cudaFuncGetAttributes(&fa, k_eval<3>);
+  if (e == cudaSuccess) e = tables == 4 ? eval_attr<4>() : eval_attr<3>();
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  a[0] = fa.numRegs;
+  a[1] = (int)fa.localSizeBytes;
+  a[3] = tables == 4 ? EvalLayout<4>::SMEM : EvalLayout<3>::SMEM;
+  a[4] = EVAL_THREADS;
+  e = tables == 4
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a[2], k_eval<4>, EVAL_THREADS, a[3])
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a[2], k_eval<3>, EVAL_THREADS, a[3]);
+  return (int)e;
 }
 
 int gkr_eq_double(void* t, const void* z, long long m, void* stream) {

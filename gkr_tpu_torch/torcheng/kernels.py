@@ -39,7 +39,9 @@ from . import limbs as L
 
 N_LIMBS = 16
 THREADS = 256
-MAX_EVAL_BLOCKS = 1024       # partial sums per eval launch
+EVAL_TILE = 128              # entries of an eval tile (csrc EVAL_TILE)
+EVAL_MAX_BLOCKS = 132        # the eval kernels' persistent grid: one block an H100 SM
+TAIL_MAX_G = 1024            # partials a round_tail takes at most (csrc TAIL_MAX_G)
 SEG_LIMBS = 18               # limbs of a relaxed segment sum (csrc SEG_LIMBS)
 MIMC_ROUNDS = 91             # the device MiMC's constant table
 
@@ -64,8 +66,8 @@ BUILD_LOG = ""
 _SIGNATURES = {
     "gkr_mont_mul": "vvvllv",
     "gkr_fold": "vvvlv",
-    "gkr_phase1_partials": "vvliv",
-    "gkr_phase2_partials": "vvvliv",
+    "gkr_phase_eval": "ivvvlivvv",
+    "gkr_eval_attrs": "iv",
     "gkr_eq_double": "vvlv",
     "gkr_seg_sum": "vvvvliv",
     "gkr_normalize": "vivvlv",
@@ -249,21 +251,34 @@ def fold(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- phase evals
-# Replace pallas_kernels.pl_phase1_eval / pl_phase2_eval
-# (gkr_tpu/jaxeng/pallas_kernels.py:318, :368) and, as the fused engine's
-# entry points, pl_phase1_partials / pl_phase2_partials (:406, :428).  Blocks
-# run in no order, so the sum runs in two passes: each block of 256 threads
-# walks the half-table with a grid stride, adds canonically in registers,
-# folds its threads by a tree of field adds in shared memory and writes one
-# canonical (3, 16) partial.  The per-round engine's `phase*_eval` adds the
-# <= 1024 partials with `limbs.sum_mod`, as the JAX package's XLA reduce
-# does; the fused engine's `phase*_partials` hand them to `round_tail`.
-# Bounds at n = 2^20: phase 1 reads 268 MB = 80 us, against 3 * 2^19
-# products = 4.2e8 IMAD = 25 us; phase 2 reads 201 MB = 60 us, against
-# 6 * 2^19 products = 8.3e8 IMAD = 50 us.  Both bind on bytes.
+# Replace pallas_kernels.pl_phase1_partials / pl_phase2_partials
+# (gkr_tpu/jaxeng/pallas_kernels.py:406, :428), the fused engine's per-block
+# round sums, and pl_phase1_eval / pl_phase2_eval (:318, :368), the
+# per-round engine's round sums, with one kernel template (csrc k_eval<4>,
+# k_eval<3>).  Bounds at n = 2^20: phase 1 reads 268 MB = 80 us, against
+# 3 * 2^19 products = 3.6e8 IMAD = 22 us; phase 2 reads 201 MB = 60 us,
+# against 3 * 2^19 products (and 3 a block by wb) = 22 us.  Both bind on
+# bytes, but a product takes ~2x its IMAD count in issue even at full
+# occupancy, so the products must run under the loads on enough warps.
+# The design: tile k is entries [k TILE, (k+1) TILE) of lo and of hi, two
+# contiguous byte ranges; a persistent grid of one block an SM (G <= 132)
+# walks the tiles k = b, b + G, ...; a three-stage ring in shared memory
+# (16-byte cp.async copies, coalesced, at a padded pitch so that reads are
+# free of bank conflicts) loads the next tiles while the block computes on
+# this one, three threads an entry, one point t = 0, 1, 2 each (12 warps an
+# SM).  Phase 2 takes three products an entry instead of the JAX formula's
+# six: sum_s FA_t (wb + W_t) + FMwb_t W_t = wb sum_s FA_t + sum_s W_t (FA_t
+# + FMwb_t), and one more product by wb a block and t.  The sums are lazy
+# (9-word accumulators, warp shuffles, one reduction mod p a block), and
+# each block writes a canonical (3, 16) partial.  `phase*_partials` hand
+# the G partials to `round_tail`; `phase*_eval` is the same launch, whose
+# last block (an atomic ticket, one counter a stream, reset by that block)
+# sums them into y (3, 16).  The plain versions keep the JAX formulas, so
+# the card's bit-equal check also proves the factorisation.
+
 
 def _eval_grid(half: int) -> int:
-    return max(1, min(MAX_EVAL_BLOCKS, -(-half // THREADS)))
+    return max(1, min(EVAL_MAX_BLOCKS, -(-half // EVAL_TILE)))
 
 
 def _phase1_terms_plain(S: torch.Tensor) -> torch.Tensor:
@@ -288,11 +303,11 @@ def _phase2_terms_plain(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
 
 def _block_sums_plain(terms: torch.Tensor) -> torch.Tensor:
     """(3, half, 16) canonical terms -> (G, 3, 16): the sum mod p of the
-    entries each block of the eval kernels' grid visits (entry s goes to
-    block (s // THREADS) % G)."""
+    entries each block of the eval kernels' grid takes (entry s is in tile
+    s // EVAL_TILE, which goes to block (s // EVAL_TILE) % G)."""
     half = terms.shape[1]
     grid = _eval_grid(half)
-    blk = (torch.arange(half, device=terms.device) // THREADS) % grid
+    blk = (torch.arange(half, device=terms.device) // EVAL_TILE) % grid
     acc = torch.zeros((grid, 3, N_LIMBS), dtype=torch.int64, device=terms.device)
     acc.index_add_(0, blk, terms.transpose(0, 1).to(torch.int64))
     return _normalize_rows_plain(acc)
@@ -323,22 +338,30 @@ def _check_stack(S: torch.Tensor, tables: int, wb=None) -> torch.device:
     return dev
 
 
-def _partials(name: str, S: torch.Tensor, wb=None) -> torch.Tensor:
-    """Launch the phase-1 (wb None) or phase-2 eval kernel on a CUDA stack:
-    (G, 3, 16) canonical per-block sums, counted under `name`."""
+@lru_cache(maxsize=None)
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The one-launch eval's counter for one stream of `device`: zero when
+    made, and reset to zero by the last block of every launch, so launches
+    on one stream take turns and two streams never share one."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _eval_launch(name: str, S: torch.Tensor, wb=None, total: bool = False):
+    """Launch the phase-1 (wb None) or phase-2 eval kernel on a CUDA stack,
+    counted under `name`: the (G, 3, 16) canonical per-block sums, or with
+    `total` their sum y (3, 16) from the same launch."""
     S = S.contiguous()
     half = S.shape[0] // 2
     grid = _eval_grid(half)
     partials = torch.empty((grid, 3, N_LIMBS), dtype=S.dtype, device=S.device)
-    lib = _load()
-    if wb is None:
-        _launch(name, S.device, lib.gkr_phase1_partials, _ptr(S),
-                _ptr(partials), half, grid)
-    else:
-        wb = wb.contiguous()
-        _launch(name, S.device, lib.gkr_phase2_partials, _ptr(S), _ptr(wb),
-                _ptr(partials), half, grid)
-    return partials
+    out = torch.empty((3, N_LIMBS), dtype=S.dtype, device=S.device) if total else None
+    ticket = (_ticket(S.device, torch.cuda.current_stream(S.device).cuda_stream)
+              if total else None)
+    _launch(name, S.device, _load().gkr_phase_eval, S.shape[1], _ptr(S),
+            None if wb is None else _ptr(wb.contiguous()), _ptr(partials), half,
+            grid, None if ticket is None else _ptr(ticket),
+            None if out is None else _ptr(out))
+    return out if total else partials
 
 
 def phase1_eval(S: torch.Tensor) -> torch.Tensor:
@@ -346,7 +369,7 @@ def phase1_eval(S: torch.Tensor) -> torch.Tensor:
     sum (HA1_t + HM_t) * W_t + HA2_t at t = 0, 1, 2."""
     if _check_stack(S, 4).type == "cpu":
         return phase1_eval_plain(S)
-    return L.sum_mod(_partials("phase1_eval", S))
+    return _eval_launch("phase1_eval", S, total=True)
 
 
 def phase2_eval(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
@@ -354,7 +377,7 @@ def phase2_eval(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
     round polynomial sum FA_t * (wb + W_t) + FMwb_t * W_t at t = 0, 1, 2."""
     if _check_stack(S, 3, wb).type == "cpu":
         return phase2_eval_plain(S, wb)
-    return L.sum_mod(_partials("phase2_eval", S, wb))
+    return _eval_launch("phase2_eval", S, wb, total=True)
 
 
 def phase1_partials(S: torch.Tensor) -> torch.Tensor:
@@ -362,14 +385,26 @@ def phase1_partials(S: torch.Tensor) -> torch.Tensor:
     canonical per-block partials, for `round_tail`."""
     if _check_stack(S, 4).type == "cpu":
         return phase1_partials_plain(S)
-    return _partials("phase1_partials", S)
+    return _eval_launch("phase1_partials", S)
 
 
 def phase2_partials(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
     """The phase-2 sums of `phase2_eval` as (G, 3, 16) block partials."""
     if _check_stack(S, 3, wb).type == "cpu":
         return phase2_partials_plain(S, wb)
-    return _partials("phase2_partials", S, wb)
+    return _eval_launch("phase2_partials", S, wb)
+
+
+def eval_attrs(tables: int) -> dict:
+    """The eval kernel of phase 1 (tables 4) or phase 2 (3) as built and as
+    it runs on this card: registers and local (spill) bytes a thread,
+    resident blocks an SM, its dynamic shared memory, threads a block."""
+    a = (ctypes.c_int * 5)()
+    rc = _load().gkr_eval_attrs(tables, ctypes.addressof(a))
+    if rc != 0:
+        raise RuntimeError(f"gkr_eval_attrs({tables}) failed: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "smem_bytes",
+                     "threads"), a))
 
 
 # --------------------------------------------------------------- eq table
@@ -591,7 +626,7 @@ def round_tail(partials: torch.Tensor, length: int):
     key 0), length 2 or 3."""
     dev = _check_limbs(partials)
     if (partials.dim() != 3 or partials.shape[1] != 3
-            or not 1 <= partials.shape[0] <= MAX_EVAL_BLOCKS or length not in (2, 3)):
+            or not 1 <= partials.shape[0] <= TAIL_MAX_G or length not in (2, 3)):
         raise ValueError(f"round_tail of partials {tuple(partials.shape)}, "
                          f"length {length}")
     if dev.type == "cpu":

@@ -246,7 +246,8 @@ def test_mimc_multi_plain_matches_host_mimc7():
 @pytest.mark.parametrize("phase", [1, 2])
 def test_partials_plain_are_block_sums(phase):
     """Each (3, 16) partial is the sum mod p of the entries its block of the
-    eval kernel's grid visits; their sum is the round's evaluation."""
+    eval kernel's grid visits (tile s // EVAL_TILE, block tile % G); their
+    sum is the round's evaluation."""
     rng = np.random.default_rng(60 + phase)
     half, T = 600, (4 if phase == 1 else 3)
     S = L.pack(rand_field(rng, 2 * half * T)).reshape(2 * half, T, 16)
@@ -255,9 +256,9 @@ def test_partials_plain_are_block_sums(phase):
     terms = (K._phase1_terms_plain(S) if phase == 1
              else K._phase2_terms_plain(S, wb))
     G = K._eval_grid(half)
-    assert part.shape == (G, 3, 16) == (3, 3, 16)
+    assert part.shape == (G, 3, 16) == (5, 3, 16)
     tv = [L.unpack(terms[t]) for t in range(3)]
-    want = [[sum(tv[t][s] for s in range(half) if (s // K.THREADS) % G == b) % P
+    want = [[sum(tv[t][s] for s in range(half) if (s // K.EVAL_TILE) % G == b) % P
              for t in range(3)] for b in range(G)]
     assert L.unpack(part) == [x for row in want for x in row]
     ev = K.phase1_eval(S) if phase == 1 else K.phase2_eval(S, wb)
