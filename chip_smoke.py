@@ -7,8 +7,8 @@ Phases, each fatal on failure:
   1. card: name, power limit, SM clock (nvidia-smi's max and a spin's
      reading; the peaks take the larger), device count;
   2. build: the CUDA kernels from gkr_tpu_torch/csrc with one nvcc (sm_90a);
-     ptxas's registers and spills of every kernel; the round evals'
-     registers, local bytes and resident blocks an SM (fails on a spill);
+     ptxas's registers and spills of every kernel (fails on a spill of a
+     round eval); the round evals' tile and resident blocks an SM;
      the SASS counts of the probes (IMADs a repetition of the peak chain, a
      Montgomery product of each variant, moves left out);
   3. kernels: the card's IMAD rate as the peak probe reads it, beside the
@@ -16,8 +16,9 @@ Phases, each fatal on failure:
      of a Montgomery product sets every compute bound; then each kernel against its
      plain PyTorch version on the card at the shapes of the path that runs
      it (n = 2^20; the wiring plans of synth_circuit(20, 16); a bucket of
-     70,000 gates; G = 1 and 1024 round partials; the probes' (16, 2^20)
-     words and 2^20 elements), random and edge inputs, bit-equal (the f32
+     70,000 gates; G = 1 and 132 round partials, the eval grid of a 2^20
+     table, both timed, and 1024, round_tail's limit; the probes'
+     (16, 2^20) words and 2^20 elements), random and edge inputs, bit-equal (the f32
      probe ops within a stated relative tolerance); the round evals also at
      n = 2, a ragged 2 tiles + 3 a half and 2^16, phase 2 at wb = 0, 1,
      p - 1 and a random value, `phase*_eval` in one launch with no other
@@ -341,20 +342,24 @@ def only_eval_kernels(name, fn, calls=5, tries=3):
                              f"kernel alone once a call")
 
 
-def eval_kernel_report(K):
-    """The eval kernels' registers, spills and residency on this card; fails
-    on a spill."""
+def eval_kernel_report(K, ptxas: dict[str, str]):
+    """The eval kernels' registers and spills as ptxas reports them, and
+    their residency on this card; fails on a spill or a missing report."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for tables, label in ((4, "phase 1, k_eval<4>"), (3, "phase 2, k_eval<3>")):
+        props = [p for name, p in ptxas.items() if f"k_evalILi{tables}E" in name]
+        if len(props) != 1:
+            raise AssertionError(f"{label}: no one ptxas report: {props}")
+        if " 0 bytes spill stores, 0 bytes spill loads" not in props[0]:
+            raise AssertionError(f"{label}: spills:{props[0]}")
         a = K.eval_attrs(tables)
         warps = a["blocks_per_sm"] * a["threads"] // 32
-        print(f"  {label}: {a['registers']} registers, {a['local_bytes']} bytes of "
-              f"local memory a thread; {a['smem_bytes']} bytes of shared memory a "
-              f"block ({K.EVAL_TILE}-entry tiles); {a['blocks_per_sm']} "
+        print(f"  {label}:{props[0]}; {a['smem_bytes']} bytes of shared memory "
+              f"a block ({a['tile']}-entry tiles); {a['blocks_per_sm']} "
               f"block(s) of {a['threads']} threads an SM = {warps} resident warps; "
               f"grid at most {K.EVAL_MAX_BLOCKS} on {sms} SMs", flush=True)
-        if a["local_bytes"] or a["blocks_per_sm"] < 1:
-            raise AssertionError(f"{label}: spills or does not fit an SM: {a}")
+        if a["blocks_per_sm"] < 1:
+            raise AssertionError(f"{label}: does not fit an SM: {a}")
 
 
 def ptxas_report(log: str) -> dict[str, str]:
@@ -486,14 +491,17 @@ def phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit):
            18 * N * 4 + N * ELEM_BYTES + ELEM_BYTES, 2.5 * N)
     del t, got, want
 
-    # round_tail at G = 1 (the last rounds) and G = 1024 (2^20 tables),
-    # lengths 2 and 3: edge partials, and 1024 partials of p - 1 (the
-    # largest lazy sums); its challenge against the host Mimc7
+    # round_tail at the G the fused path gives it: 1 (the last rounds) and
+    # the eval grid of a 2^20 table (every table of 2^15 entries or more),
+    # and at its limit TAIL_MAX_G, lengths 2 and 3: edge partials, and
+    # partials of p - 1 (the largest lazy sums); its challenge against the
+    # host Mimc7
     host = Mimc7()
     tiny = torch.zeros(16, dtype=torch.int32, device=dev)
     launch_ms = event_ms(lambda: tiny.add_(0), 200)
+    G_path = K._eval_grid(N // 2)
     tails = {}
-    for G in (1, 1024):
+    for G in (1, G_path, K.TAIL_MAX_G):
         for label, part in (("edges", with_edges(random_limbs(rng, (G, 3), dev),
                                                  edges[:3 * G], L)),
                             ("p - 1", L.pack([P - 1] * (3 * G), dev).reshape(G, 3, 16))):
@@ -535,7 +543,7 @@ def phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit):
           f"lists ({RANDOM_HASH_LISTS} random; host hashing {host_s:.2f} s)", flush=True)
 
     consts = (K.MIMC_ROUNDS + 1) * ELEM_BYTES        # the constants and the challenge
-    for G, replaces in ((1024, "gkr_tpu/jaxeng/pallas_kernels.py:479"),
+    for G, replaces in ((G_path, "gkr_tpu/jaxeng/pallas_kernels.py:479"),
                         (1, "gkr_tpu/jaxeng/pallas_kernels.py:813")):
         part, got, want = tails[G]
         record("round_tail", replaces, got, want,
@@ -929,15 +937,13 @@ def main() -> int:
 
     print("[2] build", flush=True)
     t0 = time.perf_counter()
+    K.library_path().unlink(missing_ok=True)    # built anew, so ptxas reports
     path = K.build()
     print(f"  {path.name}: {time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = ptxas_report(K.BUILD_LOG)
     for name, props in ptxas.items():
         print(f"  ptxas: {name}:{props}", flush=True)
-    for name, props in ptxas.items():
-        if "k_eval" in name and " 0 bytes spill stores, 0 bytes spill loads" not in props:
-            raise AssertionError(f"ptxas: {name} spills:{props}")
-    eval_kernel_report(K)
+    eval_kernel_report(K, ptxas)
     sass = probes.probe_sass()
     print(f"  SASS: {sass}", flush=True)
     if sass["peak_imad_per_rep"] != K.CHAINS:

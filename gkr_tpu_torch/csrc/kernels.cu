@@ -10,7 +10,7 @@
 //   gkr_phase_eval      per-block sums of g(0,1,2)   pl_phase{1,2}_partials
 //                       (k_eval<4>, k_eval<3>), or   pl_phase{1,2}_eval
 //                       their sum in the same launch
-//   gkr_eval_attrs      the evals' registers, spills, residency
+//   gkr_eval_attrs      the evals' tile, block and residency
 //   gkr_eq_double       one doubling of the chi table  pl_eq_table_T
 //   gkr_seg_sum         per-bucket sums, key-sorted  pl_seg_sum_T
 //   gkr_normalize       relaxed -> canonical (x s)   pl_normalize_T / pl_normalize_mul_T
@@ -665,28 +665,22 @@ int gkr_phase_eval(int tables, const void* S, const void* wb, void* partials,
   return (int)cudaGetLastError();
 }
 
-// The eval kernel of `tables` as built and as it runs: attrs[0] registers a
-// thread, attrs[1] local (spill) bytes a thread, attrs[2] resident blocks an
-// SM at its dynamic shared memory, attrs[3] that shared memory in bytes,
-// attrs[4] threads a block.
+// The eval kernel of `tables` as it runs: attrs[0] entries a tile, attrs[1]
+// threads a block, attrs[2] dynamic shared memory in bytes, attrs[3]
+// resident blocks an SM at that shared memory.  Registers and spills are
+// ptxas's to report.
 int gkr_eval_attrs(int tables, void* attrs) {
   if (tables != 3 && tables != 4) return (int)cudaErrorInvalidValue;
   int* a = (int*)attrs;
-  cudaFuncAttributes fa;
-  cudaError_t e = tables == 4 ? cudaFuncGetAttributes(&fa, k_eval<4>)
-                              : cudaFuncGetAttributes(&fa, k_eval<3>);
-  if (e == cudaSuccess) e = tables == 4 ? eval_attr<4>() : eval_attr<3>();
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  a[0] = fa.numRegs;
-  a[1] = (int)fa.localSizeBytes;
-  a[3] = tables == 4 ? EvalLayout<4>::SMEM : EvalLayout<3>::SMEM;
-  a[4] = EVAL_THREADS;
-  e = tables == 4
-          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a[2], k_eval<4>, EVAL_THREADS, a[3])
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a[2], k_eval<3>, EVAL_THREADS, a[3]);
+  a[0] = EVAL_TILE;
+  a[1] = EVAL_THREADS;
+  a[2] = tables == 4 ? EvalLayout<4>::SMEM : EvalLayout<3>::SMEM;
+  cudaError_t e = tables == 4 ? eval_attr<4>() : eval_attr<3>();
+  if (e == cudaSuccess)
+    e = tables == 4
+            ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a[3], k_eval<4>, a[1], a[2])
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&a[3], k_eval<3>, a[1], a[2]);
+  if (e != cudaSuccess) cudaGetLastError();
   return (int)e;
 }
 

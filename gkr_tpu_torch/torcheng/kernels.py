@@ -39,7 +39,7 @@ from . import limbs as L
 
 N_LIMBS = 16
 THREADS = 256
-EVAL_TILE = 128              # entries of an eval tile (csrc EVAL_TILE)
+EVAL_TILE = 128              # entries of an eval tile (csrc EVAL_TILE, checked at load)
 EVAL_MAX_BLOCKS = 132        # the eval kernels' persistent grid: one block an H100 SM
 TAIL_MAX_G = 1024            # partials a round_tail takes at most (csrc TAIL_MAX_G)
 SEG_LIMBS = 18               # limbs of a relaxed segment sum (csrc SEG_LIMBS)
@@ -132,6 +132,10 @@ def _load():
             fn = getattr(lib, name)
             fn.argtypes = [_CTYPES[c] for c in sig]
             fn.restype = ctypes.c_int
+        tile = _eval_attrs(lib, 4)["tile"]
+        if tile != EVAL_TILE:       # _block_sums_plain's schedule reads EVAL_TILE
+            raise RuntimeError(f"the library's eval tile is {tile} entries, "
+                               f"EVAL_TILE {EVAL_TILE}")
         _lib = lib
     return _lib
 
@@ -396,15 +400,18 @@ def phase2_partials(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
 
 
 def eval_attrs(tables: int) -> dict:
-    """The eval kernel of phase 1 (tables 4) or phase 2 (3) as built and as
-    it runs on this card: registers and local (spill) bytes a thread,
-    resident blocks an SM, its dynamic shared memory, threads a block."""
-    a = (ctypes.c_int * 5)()
-    rc = _load().gkr_eval_attrs(tables, ctypes.addressof(a))
+    """The eval kernel of phase 1 (tables 4) or phase 2 (3) as it runs on
+    this card: entries a tile, threads a block, its dynamic shared memory,
+    resident blocks an SM."""
+    return _eval_attrs(_load(), tables)
+
+
+def _eval_attrs(lib, tables: int) -> dict:
+    a = (ctypes.c_int * 4)()
+    rc = lib.gkr_eval_attrs(tables, ctypes.addressof(a))
     if rc != 0:
         raise RuntimeError(f"gkr_eval_attrs({tables}) failed: cudaError {rc}")
-    return dict(zip(("registers", "local_bytes", "blocks_per_sm", "smem_bytes",
-                     "threads"), a))
+    return dict(zip(("tile", "threads", "smem_bytes", "blocks_per_sm"), a))
 
 
 # --------------------------------------------------------------- eq table

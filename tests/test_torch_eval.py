@@ -17,6 +17,8 @@ to gkr_tpu.jaxeng.sumcheck's jitted `_phase2_eval`; a word-level
 model of the accumulators asserts that no carry is lost at the largest
 tables.  Every comparison is exact."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -289,3 +291,16 @@ def test_phase2_lazy_operand_keeps_the_product_canonical():
             assert fr_mul_cios(w2, u) == w2 * u * R_INV % P
     for a in (3 * P - 2, 3 * P - 1, 2 * P, (1 << 255) + 12345):
         assert fr_mul_cios(a, P - 1) == a * (P - 1) * R_INV % P
+
+
+def test_kernel_sizes_match_the_source():
+    """The plain versions' block schedule and the wrappers' checks read the
+    sizes that csrc/kernels.cu defines; a drift would otherwise show only in
+    the card's bit-equal checks."""
+    src = (K.CSRC / "kernels.cu").read_text()
+    defined = {m.group(1): int(m.group(2))
+               for m in re.finditer(r"^#define (\w+) (\d+)\b", src, re.M)}
+    assert {k: defined[k] for k in ("THREADS", "EVAL_TILE", "TAIL_MAX_G", "SEG_LIMBS")} \
+        == {"THREADS": K.THREADS, "EVAL_TILE": K.EVAL_TILE,
+            "TAIL_MAX_G": K.TAIL_MAX_G, "SEG_LIMBS": K.SEG_LIMBS}
+    assert K.EVAL_TILE % 32 == 0 and K.EVAL_MAX_BLOCKS <= K.TAIL_MAX_G

@@ -211,10 +211,12 @@ def test_round_coeffs_plain_matches_interp3_and_host(G):
     assert L.unpack(got) == jax_interpolate(list(zip(range(3), y)))
 
 
-@pytest.mark.parametrize("G, length", [(1, 2), (1, 3), (1024, 2), (1024, 3)])
+@pytest.mark.parametrize("G, length", [(1, 2), (1, 3), (K.EVAL_MAX_BLOCKS, 2),
+                                       (K.EVAL_MAX_BLOCKS, 3), (1024, 2), (1024, 3)])
 def test_round_tail_plain_matches_interp3_and_host_mimc7(G, length):
     """round_tail: the coefficients of `_interp3` and, as the challenge, the
-    host Mimc7 of the round's last `length` of them; G = 1024 partials of
+    host Mimc7 of the round's last `length` of them; G = 1 and the eval
+    grid's most are what the fused path hands it, and G = 1024 partials of
     p - 1 are the largest sums the kernel's lazy limb sums take."""
     rng = np.random.default_rng(45 + G + length)
     vals = [P - 1] * (3 * G) if G == 1024 else rand_field(rng, 3 * G)
