@@ -8,7 +8,8 @@ Phases, each fatal on failure:
      reading; the peaks take the larger), device count;
   2. build: the CUDA kernels from gkr_tpu_torch/csrc with one nvcc (sm_90a);
      ptxas's registers and spills of every kernel (fails on a spill of a
-     round eval); the round evals' tile and resident blocks an SM;
+     round eval, the eq table or normalize); the round evals' tile and
+     resident blocks an SM;
      the SASS counts of the probes (IMADs a repetition of the peak chain, a
      Montgomery product of each variant, moves left out);
   3. kernels: the card's IMAD rate as the peak probe reads it, beside the
@@ -22,7 +23,9 @@ Phases, each fatal on failure:
      probe ops within a stated relative tolerance); the round evals also at
      n = 2, a ragged 2 tiles + 3 a half and 2^16, phase 2 at wb = 0, 1,
      p - 1 and a random value, `phase*_eval` in one launch with no other
-     kernel (torch.profiler); the round tail's and
+     kernel (torch.profiler); the eq table in one launch at k = 1 .. 12,
+     15, 16, 20 and 24 (also against the host's eq on sampled entries at 20
+     and 24); the round tail's and
      mimc_multi's challenges also against the host Mimc7 on 262 lists;
      kernel and plain version timed with CUDA events (the round evals also
      at 2^16, launches queued), `index_add_` beside
@@ -33,7 +36,8 @@ Phases, each fatal on failure:
      over one more prove (torch.profiler);
   5. fused slice: the same with TorchBackend(), the fused engine (three
      launches a round: partials, round_tail, fold); [5b] lists the device
-     time of every kernel of the warm prove;
+     time of every kernel of the warm prove, the round evals' and the eq
+     table's beside their bounds summed over the prove;
   6. card against CPU: synth_circuit(12, 10) proved on both with each
      engine, identical; a corrupted device challenge must make the fused
      layer's host check raise;
@@ -78,9 +82,9 @@ FUSED_ONLY = ("phase1_partials", "phase2_partials", "round_tail",
 # Launches of one prove of synth_circuit(20, 16): three layer sumchecks with
 # k_next = 20, 20, 16 (40 + 40 + 32 rounds) on the card.  Both engines build
 # eq(z) over k_cur = 4, 20, 20 points and eq(b*) over 20, 20, 16, one
-# eq_table launch per doubling.
+# eq_table launch a table.
 EXPECTED_PER_ROUND = {"phase1_eval": 20, "phase2_eval": 20, "fold": 40,
-                      "eq_table": 100, **{name: 0 for name in FUSED_ONLY}}
+                      "eq_table": 6, **{name: 0 for name in FUSED_ONLY}}
 EXPECTED_FUSED = {
     "round_tail": 112, "mimc_multi": 0, "fold": 112,
     "phase1_partials": 56, "phase2_partials": 56,
@@ -91,7 +95,7 @@ EXPECTED_FUSED = {
     "normalize": 11,
     "normalize_mul": 2,                 # FM * W~(b*), wide layers only
     "stack": 6,                         # one a build, two builds a layer
-    "eq_table": 100,
+    "eq_table": 6,
     "phase1_eval": 0, "phase2_eval": 0,
 }
 LAUNCHES_FROM_PER_ROUND = ("phase1_eval", "phase2_eval")
@@ -342,19 +346,29 @@ def only_eval_kernels(name, fn, calls=5, tries=3):
                              f"kernel alone once a call")
 
 
-def eval_kernel_report(K, ptxas: dict[str, str]):
-    """The eval kernels' registers and spills as ptxas reports them, and
-    their residency on this card; fails on a spill or a missing report."""
+# Kernels whose ptxas report must show no spill, by a piece of the mangled name
+NO_SPILL = {"k_evalILi4E": "phase 1, k_eval<4>", "k_evalILi3E": "phase 2, k_eval<3>",
+            "k_eq_table": "eq table, k_eq_table",
+            "k_normalizeILb0E": "normalize, k_normalize<false>",
+            "k_normalizeILb1E": "normalize with its scalar, k_normalize<true>"}
+
+
+def kernel_report(K, ptxas: dict[str, str]):
+    """The registers and spills ptxas reports for the kernels of NO_SPILL
+    (fails on a spill or a missing report), and the eval kernels' residency
+    on this card."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for tables, label in ((4, "phase 1, k_eval<4>"), (3, "phase 2, k_eval<3>")):
-        props = [p for name, p in ptxas.items() if f"k_evalILi{tables}E" in name]
+    for key, label in NO_SPILL.items():
+        props = [p for name, p in ptxas.items() if key in name]
         if len(props) != 1:
             raise AssertionError(f"{label}: no one ptxas report: {props}")
         if " 0 bytes spill stores, 0 bytes spill loads" not in props[0]:
             raise AssertionError(f"{label}: spills:{props[0]}")
+        print(f"  {label}:{props[0]}", flush=True)
+    for tables, label in ((4, "phase 1, k_eval<4>"), (3, "phase 2, k_eval<3>")):
         a = K.eval_attrs(tables)
         warps = a["blocks_per_sm"] * a["threads"] // 32
-        print(f"  {label}:{props[0]}; {a['smem_bytes']} bytes of shared memory "
+        print(f"  {label}: {a['smem_bytes']} bytes of shared memory "
               f"a block ({a['tile']}-entry tiles); {a['blocks_per_sm']} "
               f"block(s) of {a['threads']} threads an SM = {warps} resident warps; "
               f"grid at most {K.EVAL_MAX_BLOCKS} on {sms} SMs", flush=True)
@@ -397,24 +411,58 @@ def relaxed_edges(P: int, lin: int) -> list[list[int]]:
 def phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit):
     """The fused engine's kernels against their plain versions, at the
     shapes synth_circuit(20, 16) gives them."""
+    from gkr_tpu_torch.mle import eq_bits
+
     rng = np.random.default_rng(2025)
     dev = DEVICE
     edges = edge_values(P, R)
 
-    # eq_table at k = 20, random and edge points
-    z = random_limbs(rng, (20,), dev)
-    zedge = with_edges(random_limbs(rng, (20,), dev), edges, L)
-    for pt in (zedge, z):
-        got, want = K.eq_table(pt), K.eq_table_plain(pt)
-        if not torch.equal(got, want):
-            raise AssertionError("eq_table: disagrees with its plain version")
-    if L.unpack(K.eq_table(z[:3])) != L.unpack(K.eq_table_plain(z[:3])):
-        raise AssertionError("eq_table: k = 3 table differs")
-    record("eq_table", "gkr_tpu/jaxeng/pallas_kernels.py:214", got, want,
-           event_ms(lambda: K.eq_table(z), 20),
-           event_ms(lambda: K.eq_table_plain(z), 2, 1),
-           (20 + N) * ELEM_BYTES, 2 * N - 2)
-    del got, want
+    # eq_table: one launch a table, bit-equal to the doubling at every
+    # split into factor tables of EQ_BITS variables (k = 1 .. 12: one to
+    # three tables, T_0 of every width), at 15, 16, 20 (the path's) and 24,
+    # at random points and at points of edge values; at 20 and 24 also
+    # against the host's eq(z, b) on sampled entries; k = 0 launches nothing
+    # and a k beyond EQ_MAX_K is refused
+    for k in (*range(1, 3 * K.EQ_BITS - 2), 15, 16, 20, 24):
+        z = random_limbs(rng, (k,), dev)
+        zedge = with_edges(random_limbs(rng, (k,), dev),
+                           [edges[(i + k) % len(edges)] for i in range(k)], L)
+        for pt in (zedge, z):
+            got = one_launch(K, "eq_table", lambda: K.eq_table(pt))
+            want = K.eq_table_plain(pt)
+            if not torch.equal(got, want):
+                raise AssertionError(f"eq_table k={k}: disagrees with its plain "
+                                     f"version (max abs limb error "
+                                     f"{max_abs_err(got, want)})")
+        if k >= 20:
+            point = L.unpack(z)
+            idx = [0, (1 << k) - 1, *rng.integers(0, 1 << k, size=30).tolist()]
+            if L.unpack(got[idx]) != [eq_bits(point, i) for i in idx]:
+                raise AssertionError(f"eq_table k={k}: differs from the host's "
+                                     f"eq(z, b)")
+        if k in (4, 16, 24):
+            b_ms, b_by = bound((k + (1 << k)) * ELEM_BYTES, 1 << k)
+            print(f"  eq_table k={k}: kernel {event_ms(lambda: K.eq_table(z), 20):.4f} ms  "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if k == 20:
+            z20, got20, want20 = z, got, want
+        del got, want
+    print(f"  eq_table: bit-equal at k = 1 .. {3 * K.EQ_BITS - 3}, 15, 16, 20, 24, "
+          f"random and edge points, one launch a table", flush=True)
+    before = dict(K.LAUNCHES)
+    if not torch.equal(K.eq_table(z[:0]), K.eq_table_plain(z[:0])) or K.LAUNCHES != before:
+        raise AssertionError("eq_table k=0: not [1] without a launch")
+    try:
+        K.eq_table(random_limbs(rng, (K.EQ_MAX_K + 1,), dev))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"eq_table took k = {K.EQ_MAX_K + 1}")
+    record("eq_table", "gkr_tpu/jaxeng/pallas_kernels.py:214", got20, want20,
+           event_ms(lambda: K.eq_table(z20), 20),
+           event_ms(lambda: K.eq_table_plain(z20), 2, 1),
+           (20 + N) * ELEM_BYTES, N)
+    del got20, want20
 
     # seg_sum on the 2^20 layer's plans and on a hot bucket of 70,000 gates
     layer = circuit.layers[1]
@@ -488,7 +536,7 @@ def phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit):
     record("normalize_mul", "gkr_tpu/jaxeng/pallas_kernels.py:554", got, want,
            event_ms(lambda: K.normalize(t, s), 30),
            event_ms(lambda: K.normalize_plain(t, s), 2, 1),
-           18 * N * 4 + N * ELEM_BYTES + ELEM_BYTES, 2.5 * N)
+           18 * N * 4 + N * ELEM_BYTES + ELEM_BYTES, 1.5 * N)
     del t, got, want
 
     # round_tail at the G the fused path gives it: 1 (the last rounds) and
@@ -706,6 +754,18 @@ def eval_totals_vs_bounds(K, circuit, bound, device_ms):
         ms, count = next((v for k, v in device_ms.items() if name in k), (0.0, 0))
         print(f"  {name}: {ms:.3f} ms over {count} launches in [5b], against its "
               f"bound summed over those rounds {total:.4f} ms", flush=True)
+
+
+def eq_total_vs_bound(circuit, bound, device_ms):
+    """The eq kernel's [5b] total beside its bound summed over the prove's
+    tables: eq(z) over k_cur and eq(b*) over k_next points a layer."""
+    ks = [k for layer in circuit.layers for k in (layer.k_cur, layer.k_next)]
+    total = sum(bound((k + (1 << k)) * ELEM_BYTES, 1 << k)[0] for k in ks)
+    ms, count = next((v for key, v in device_ms.items() if "k_eq_table" in key),
+                     (0.0, 0))
+    print(f"  k_eq_table: {ms:.3f} ms over {count} launches in [5b] (tables at "
+          f"k = {ks}), against its bound summed over them {total:.4f} ms",
+          flush=True)
 
 
 def phase_card_vs_cpu(F, prove, verify, TorchBackend, synth_circuit, mle_struct,
@@ -943,7 +1003,7 @@ def main() -> int:
     ptxas = ptxas_report(K.BUILD_LOG)
     for name, props in ptxas.items():
         print(f"  ptxas: {name}:{props}", flush=True)
-    eval_kernel_report(K, ptxas)
+    kernel_report(K, ptxas)
     sass = probes.probe_sass()
     print(f"  SASS: {sass}", flush=True)
     if sass["peak_imad_per_rep"] != K.CHAINS:
@@ -1007,6 +1067,7 @@ def main() -> int:
           "(torch.profiler)", flush=True)
     device_ms = phase_profile(prove, lambda: backend, circuit, w, wall_warm)
     eval_totals_vs_bounds(K, circuit, bound, device_ms)
+    eq_total_vs_bound(circuit, bound, device_ms)
     print(f"  fused prove {wall_f:.3f} s (plans built), {wall_warm:.3f} s "
           f"(cached), against per-round {wall_pr:.3f} s (host clock, this run)",
           flush=True)

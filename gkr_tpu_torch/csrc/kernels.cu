@@ -11,7 +11,7 @@
 //                       (k_eval<4>, k_eval<3>), or   pl_phase{1,2}_eval
 //                       their sum in the same launch
 //   gkr_eval_attrs      the evals' tile, block and residency
-//   gkr_eq_double       one doubling of the chi table  pl_eq_table_T
+//   gkr_eq_table        the chi table of a point     pl_eq_table_T
 //   gkr_seg_sum         per-bucket sums, key-sorted  pl_seg_sum_T
 //   gkr_normalize       relaxed -> canonical (x s)   pl_normalize_T / pl_normalize_mul_T
 //   gkr_round_tail      partials -> (c2, c1, c0) and the round's challenge
@@ -360,19 +360,94 @@ k_eval(const uint32_t* __restrict__ S, const uint32_t* __restrict__ wbp,
 }
 
 // ------------------------------------------------------------- eq table
-// One MSB-first doubling in place: t[i], i < m  ->  t[i] = t[i] * (1 - z),
-// t[i + m] = t[i] * z.  A thread reads only its own entry before writing it,
-// and entries [m, 2m) are read by no one, so one buffer serves every step.
-__global__ void __launch_bounds__(THREADS)
-k_eq_double(uint32_t* __restrict__ t, const uint32_t* __restrict__ zp,
-            long long m) {
-  long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= m) return;
-  Fr z = fr_load(zp);
-  Fr zc = fr_sub(fr_const(FR_ONE), z);
-  Fr x = fr_load(t + 16 * i);
-  fr_store(t + 16 * (i + m), fr_mul(x, z));
-  fr_store(t + 16 * i, fr_mul(x, zc));
+// Replaces pallas_kernels.pl_eq_table_T (its doubling _eq_extend_T): the chi
+// table out[b] = prod_j (bit j of b ? z_j : 1 - z_j) of a point z (k, 16),
+// MSB-first (z_0 is the top index bit), 2^k entries, in one launch.
+//
+// What bounds it: the table, written once (2^k x 64 B: 20 us at k = 20), and
+// one product an entry (2^20 products: 11 us of IMADs at the card's peak, but
+// a product issues at ~1.8x its IMAD count, so the products bind).  The
+// doubling it replaces took a launch a variable and two products an entry
+// pair at every level, and read and rewrote the table at each.
+//
+// The design: the variables are cut MSB-first into n = ceil(k / EQ_BITS)
+// factor tables of at most EQ_BITS variables, one entry a lane: T_{n-1} over
+// the last min(k, EQ_BITS), T_1 .. T_{n-2} over EQ_BITS each above it, T_0
+// over the rest at the top.  Entry b = (i_0, ..., i_{n-1}) is the product
+// T_0[i_0] ... T_{n-1}[i_{n-1}]; row r = b >> EQ_BITS has the value
+// V[r] = T_0[i_0] ... T_{n-2}[i_{n-2}], and out[(r << EQ_BITS) | l] =
+// V[r] T_{n-1}[l]: one product an entry.  A persistent grid (at most the
+// blocks the card holds at once) builds the tables once a block in shared
+// memory (warp t, lane i: T_t[i], its factors loaded at once and multiplied
+// as a tree, three products deep); each lane keeps T_{n-1}[lane] in
+// registers.  Block g writes a contiguous share of the rows, EQ_BATCH rows
+// at a time: every thread takes the values of up to two of them (n - 2
+// products each), then warp w writes rows w, w + EQ_WARPS, ... of the batch
+// (lane l: one product and four 16-byte stores, so a warp writes a
+// contiguous 2 KB row); two barriers a batch, one batch a block at k = 20.
+// Every product is canonical, so the order of the products changes no limb:
+// the table is bit-equal to the doubling.
+#define EQ_BITS 5                         // variables of a factor table
+#define EQ_WIDTH (1 << EQ_BITS)           // its entries, one a lane
+#define EQ_MAX_K 32                       // variables a table takes at most
+#define EQ_MAX_TABLES ((EQ_MAX_K + EQ_BITS - 1) / EQ_BITS)
+#define EQ_THREADS 512
+#define EQ_WARPS (EQ_THREADS / 32)
+#define EQ_BATCH (2 * EQ_THREADS)         // rows whose values a block holds
+
+// z_j for index bit 1, 1 - z_j for 0
+__device__ __forceinline__ Fr eq_factor(const uint32_t* zj, int bit) {
+  const Fr x = fr_load(zj);
+  return bit ? x : fr_sub(fr_const(FR_ONE), x);
+}
+
+// V[r] = T_0[i_0] ... T_{n-2}[i_{n-2}] (1 for one table), i_{n-2} the low
+// EQ_BITS bits of r
+__device__ __forceinline__ Fr eq_row_value(const Fr* tab, int n, long long r) {
+  if (n == 1) return fr_const(FR_ONE);
+  Fr x = tab[r >> (EQ_BITS * (n - 2))];
+  for (int t = 1; t < n - 1; ++t)
+    x = fr_mul(x, tab[EQ_WIDTH * t + ((r >> (EQ_BITS * (n - 2 - t))) & (EQ_WIDTH - 1))]);
+  return x;
+}
+
+__global__ void __launch_bounds__(EQ_THREADS, 1)
+k_eq_table(const uint32_t* __restrict__ z, int k, uint32_t* __restrict__ out) {
+  __shared__ Fr tab[EQ_MAX_TABLES * EQ_WIDTH];     // T_t[i] at EQ_WIDTH t + i
+  __shared__ Fr vals[EQ_BATCH];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = (k + EQ_BITS - 1) / EQ_BITS;
+  const int w0 = k - EQ_BITS * (n - 1);          // variables of T_0
+  const int kl = n == 1 ? k : EQ_BITS;           // variables of T_{n-1}
+  if (warp < n) {
+    // T_t over z_v .. z_{v+w-1}, z_v its top index bit; factors past w are 1
+    const int w = warp ? EQ_BITS : w0;
+    const int v = warp ? w0 + EQ_BITS * (warp - 1) : 0;
+    Fr f[EQ_BITS];
+#pragma unroll
+    for (int q = 0; q < EQ_BITS; ++q)
+      f[q] = q < w ? eq_factor(z + 16 * (v + q), (lane >> (w - 1 - q)) & 1)
+                   : fr_const(FR_ONE);
+    tab[EQ_WIDTH * warp + lane] =
+        fr_mul(fr_mul(fr_mul(f[0], f[1]), fr_mul(f[2], f[3])), f[4]);
+  }
+  __syncthreads();
+  const bool writes = lane < (1 << kl);
+  const Fr tl = writes ? tab[EQ_WIDTH * (n - 1) + lane] : fr_zero();
+  const long long rows = 1LL << (k - kl);
+  const long long r0 = rows * blockIdx.x / gridDim.x;
+  const long long r1 = rows * (blockIdx.x + 1) / gridDim.x;
+  for (long long rb = r0; rb < r1; rb += EQ_BATCH) {
+    const int m = (int)(r1 - rb < EQ_BATCH ? r1 - rb : EQ_BATCH);
+    for (int j = tid; j < m; j += EQ_THREADS) vals[j] = eq_row_value(tab, n, rb + j);
+    __syncthreads();
+#pragma unroll 1
+    for (int j = warp; j < m; j += EQ_WARPS) {
+      const Fr y = fr_mul(vals[j], tl);
+      if (writes) fr_store(out + 16 * (((rb + j) << kl) | lane), y);
+    }
+    __syncthreads();
+  }
 }
 
 // ------------------------------------------------------------ segment sum
@@ -474,15 +549,15 @@ k_seg_sum(const int* __restrict__ hib, const uint32_t* __restrict__ w0,
 
 // ---------------------------------------------------------------- normalize
 // t: (lin, n) relaxed limbs, lin <= 32, each < 2^31, value < p * 2^256.
-// out[i] = value mod p in Montgomery form: REDC (value / R), then x R^2 / R,
-// then x s when a scalar s is given.  The carry chain turns the relaxed
-// limbs into 16 32-bit words (value < 2^510, so nothing spills past them).
-__global__ void __launch_bounds__(THREADS)
-k_normalize(const uint32_t* __restrict__ t, int lin,
-            const uint32_t* __restrict__ sp, uint32_t* __restrict__ out,
-            long long n) {
-  long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
+// out[i] = value mod p in Montgomery form: REDC (value / R), then x R^2 / R;
+// with a scalar s, x (s R) / R instead (one product an entry fewer), s R =
+// fr_mul(s, R^2) taken once a block by its first thread while the others
+// reduce their first entries, on a grid of the blocks the card holds at
+// once, each thread's next entry reduced before its product of this one.
+// The carry chain turns the relaxed limbs into 16 32-bit words (value <
+// 2^510, so nothing spills past them).
+__device__ __forceinline__ Fr normalize_redc(const uint32_t* __restrict__ t,
+                                             int lin, long long n, long long i) {
   uint32_t T[17];
   unsigned long long c = 0ull;
 #pragma unroll
@@ -494,9 +569,33 @@ k_normalize(const uint32_t* __restrict__ t, int lin,
     else T[l >> 1] = limb;
   }
   T[16] = (uint32_t)c;
-  Fr x = fr_mul(fr_redc_wide(T), fr_const(FR_R2));
-  if (sp) x = fr_mul(x, fr_load(sp));
-  fr_store(out + 16 * i, x);
+  return fr_redc_wide(T);
+}
+
+template <bool SCALED>
+__global__ void __launch_bounds__(THREADS)
+k_normalize(const uint32_t* __restrict__ t, int lin,
+            const uint32_t* __restrict__ sp, uint32_t* __restrict__ out,
+            long long n) {
+  long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if constexpr (!SCALED) {
+    if (i >= n) return;
+    fr_store(out + 16 * i, fr_mul(normalize_redc(t, lin, n, i), fr_const(FR_R2)));
+  } else {
+    __shared__ Fr sr;
+    if (threadIdx.x == 0) sr = fr_mul(fr_load(sp), fr_const(FR_R2));
+    Fr x = i < n ? normalize_redc(t, lin, n, i) : fr_zero();
+    __syncthreads();
+    const Fr s1 = sr;
+    const long long stride = (long long)gridDim.x * THREADS;
+    while (i < n) {
+      const long long next = i + stride;
+      const Fr xn = next < n ? normalize_redc(t, lin, n, next) : x;
+      fr_store(out + 16 * i, fr_mul(x, s1));
+      x = xn;
+      i = next;
+    }
+  }
 }
 
 // -------------------------------------------------------------------- MiMC
@@ -614,6 +713,31 @@ static inline unsigned blocks_for(long long n) {
   return (unsigned)((n + THREADS - 1) / THREADS);
 }
 
+// The blocks of `threads` threads of `kernel` that the card holds at once
+// (SMs x resident blocks an SM), queried once a device into `cache`.
+template <typename Kernel>
+static cudaError_t resident_blocks(Kernel kernel, int threads, int (&cache)[64],
+                                   long long* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev < 64 && cache[dev]) {
+    *blocks = cache[dev];
+    return e;
+  }
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
+  if (e != cudaSuccess) {
+    cudaGetLastError();       // not left behind for the next launch's check
+    return e;
+  }
+  *blocks = (long long)sms * per_sm;
+  if (dev < 64) cache[dev] = sms * per_sm;
+  return e;
+}
+
 // Above 48 KB a block's dynamic shared memory must be allowed per kernel,
 // once for each device.
 template <int T>
@@ -684,9 +808,17 @@ int gkr_eval_attrs(int tables, void* attrs) {
   return (int)e;
 }
 
-int gkr_eq_double(void* t, const void* z, long long m, void* stream) {
-  k_eq_double<<<blocks_for(m), THREADS, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)t, (const uint32_t*)z, m);
+// The chi table of z (k, 16), 1 <= k <= EQ_MAX_K, into out (2^k, 16), on
+// at most the blocks the card holds at once and at most one a row.
+int gkr_eq_table(const void* z, int k, void* out, void* stream) {
+  if (k < 1 || k > EQ_MAX_K) return (int)cudaErrorInvalidValue;
+  static int cache[64] = {};
+  long long blocks = 0;
+  const cudaError_t e = resident_blocks(k_eq_table, EQ_THREADS, cache, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  const long long rows = 1LL << (k - (k < EQ_BITS ? k : EQ_BITS));
+  k_eq_table<<<(unsigned)(rows < blocks ? rows : blocks), EQ_THREADS, 0,
+               (cudaStream_t)stream>>>((const uint32_t*)z, k, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 
@@ -700,7 +832,17 @@ int gkr_seg_sum(const void* hib, const void* w0, const void* w1, void* out,
 
 int gkr_normalize(const void* t, int lin, const void* s, void* out,
                   long long n, void* stream) {
-  k_normalize<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+  if (!s) {
+    k_normalize<false><<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)t, lin, nullptr, (uint32_t*)out, n);
+    return (int)cudaGetLastError();
+  }
+  static int cache[64] = {};
+  long long blocks = 0;
+  const cudaError_t e = resident_blocks(k_normalize<true>, THREADS, cache, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  k_normalize<true><<<(unsigned)(blocks_for(n) < blocks ? blocks_for(n) : blocks),
+                      THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)t, lin, (const uint32_t*)s, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }

@@ -68,7 +68,7 @@ _SIGNATURES = {
     "gkr_fold": "vvvlv",
     "gkr_phase_eval": "ivvvlivvv",
     "gkr_eval_attrs": "iv",
-    "gkr_eq_double": "vvlv",
+    "gkr_eq_table": "vivv",
     "gkr_seg_sum": "vvvvliv",
     "gkr_normalize": "vivvlv",
     "gkr_round_tail": "viivivvv",
@@ -417,12 +417,18 @@ def _eval_attrs(lib, tables: int) -> dict:
 # --------------------------------------------------------------- eq table
 # Replaces pallas_kernels.pl_eq_table_T (gkr_tpu/jaxeng/pallas_kernels.py:214,
 # its kernel _eq_extend_T / _mul_scalar2_kernel :191, :180) and, in the
-# per-round engine, the XLA doubling chain limbs.eq_table_device.  One launch per
-# MSB-first doubling, in place in the output buffer: k launches for a k-point
-# table, the last writing 2^k entries.  Bound at k = 20: the table is
-# written once (67 MB = 20 us) and takes 2^20 - 1 doubling-step pairs, 2^21
-# products = 5.5e8 IMAD = 33 us: operations bind.  z stays on the card (for
-# phase 2 it is b*, the device challenges).
+# per-round engine, the XLA doubling chain limbs.eq_table_device.  One launch
+# a table: the k variables cut MSB-first into factor tables of EQ_BITS
+# variables (32 entries, one a lane), built once a block in shared memory;
+# entry b is the value of its row b >> EQ_BITS (the upper tables' product)
+# times the last table's entry b & 31, one product an entry (csrc/kernels.cu
+# k_eq_table).  Bound at k = 20: the table written once (67 MB = 20 us)
+# against 2^20 products = 1.8e8 IMAD = 11 us: bytes bind.  z stays on the
+# card (for phase 2 it is b*, the device challenges).
+
+EQ_BITS = 5                  # variables of a factor table (csrc EQ_BITS)
+EQ_MAX_K = 32                # variables a table takes at most (csrc EQ_MAX_K)
+
 
 def eq_table_plain(z: torch.Tensor) -> torch.Tensor:
     one = L.const("MONT_ONE_LIMBS", z.device).reshape(1, N_LIMBS)
@@ -436,21 +442,20 @@ def eq_table_plain(z: torch.Tensor) -> torch.Tensor:
 
 def eq_table(z: torch.Tensor) -> torch.Tensor:
     """chi table of the point z (k, 16) Montgomery limbs -> (2^k, 16),
-    MSB-first (z_0 is the top index bit), as `gkr_tpu_torch.mle.eq_table`."""
+    MSB-first (z_0 is the top index bit), as `gkr_tpu_torch.mle.eq_table`;
+    k at most EQ_MAX_K."""
     dev = _check_limbs(z)
-    if z.dim() != 2:
+    if z.dim() != 2 or z.shape[0] > EQ_MAX_K:
         raise ValueError(f"eq_table of a point of shape {tuple(z.shape)}")
     if dev.type == "cpu":
         return eq_table_plain(z)
-    z = z.contiguous()
     k = z.shape[0]
-    t = torch.empty((1 << k, N_LIMBS), dtype=z.dtype, device=dev)
-    t[0] = L.const("MONT_ONE_LIMBS", dev)
-    lib = _load()
-    for j in range(k - 1, -1, -1):
-        _launch("eq_table", dev, lib.gkr_eq_double, _ptr(t), _ptr(z[j]),
-                1 << (k - 1 - j))
-    return t
+    if k == 0:
+        return L.const("MONT_ONE_LIMBS", dev).reshape(1, N_LIMBS).clone()
+    z = z.contiguous()
+    out = torch.empty((1 << k, N_LIMBS), dtype=z.dtype, device=dev)
+    _launch("eq_table", dev, _load().gkr_eq_table, _ptr(z), k, _ptr(out))
+    return out
 
 
 # ------------------------------------------------------------ segment sum
@@ -517,12 +522,15 @@ def seg_sum(weights, hib: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------- normalize
 # Replaces pallas_kernels.pl_normalize_T and pl_normalize_mul_T
-# (gkr_tpu/jaxeng/pallas_kernels.py:521, :554): one kernel, the scalar
-# pointer null or not.  One thread an entry: the relaxed limbs' carry chain
-# into 16 words, a 512-bit Montgomery reduction, x R^2 and x s.  Bound at
-# n = 2^20 with 18 limbs in: 75 MB read + 67 MB written = 43 us, against
-# 1.5 products an entry (the reduction, half a product's word products,
-# and x R^2; 2.5 with s) = 4.2e8 IMAD = 25 us (42 us with s): bytes bind.
+# (gkr_tpu/jaxeng/pallas_kernels.py:521, :554): one kernel, k_normalize<false>
+# and <true>.  A thread an entry: the relaxed limbs' carry chain into 16
+# words, a 512-bit Montgomery reduction, then x R^2, or with a scalar s
+# x (s R), where s R = s * R^2 / R is taken once a block (the scaled kernel
+# runs on the blocks the card holds at once, a thread reducing its next
+# entry before its product of this one).  Bound at n = 2^20 with 18 limbs
+# in: 75 MB read + 67 MB written = 43 us, against 1.5 products an entry (the
+# reduction, half a product's word products, and one product) = 4.2e8 IMAD
+# = 25 us, with or without s: bytes bind.
 
 def normalize_plain(t: torch.Tensor, scalar=None) -> torch.Tensor:
     out = _normalize_rows_plain(t.T.to(torch.int64))

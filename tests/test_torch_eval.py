@@ -300,7 +300,9 @@ def test_kernel_sizes_match_the_source():
     src = (K.CSRC / "kernels.cu").read_text()
     defined = {m.group(1): int(m.group(2))
                for m in re.finditer(r"^#define (\w+) (\d+)\b", src, re.M)}
-    assert {k: defined[k] for k in ("THREADS", "EVAL_TILE", "TAIL_MAX_G", "SEG_LIMBS")} \
+    assert {k: defined[k] for k in ("THREADS", "EVAL_TILE", "TAIL_MAX_G", "SEG_LIMBS",
+                                    "EQ_BITS", "EQ_MAX_K")} \
         == {"THREADS": K.THREADS, "EVAL_TILE": K.EVAL_TILE,
-            "TAIL_MAX_G": K.TAIL_MAX_G, "SEG_LIMBS": K.SEG_LIMBS}
+            "TAIL_MAX_G": K.TAIL_MAX_G, "SEG_LIMBS": K.SEG_LIMBS,
+            "EQ_BITS": K.EQ_BITS, "EQ_MAX_K": K.EQ_MAX_K}
     assert K.EVAL_TILE % 32 == 0 and K.EVAL_MAX_BLOCKS <= K.TAIL_MAX_G

@@ -192,6 +192,27 @@ def test_normalize_plain_matches_jax_normalize_relaxed(lin):
         K.normalize(tt.to(torch.int64))
 
 
+@pytest.mark.parametrize("lin", [18, 32])
+def test_normalize_folded_scalar_matches_jax_normalize_times_s(lin):
+    """k_normalize<true>'s arithmetic: redc(V) (s R^2 / R) equals
+    (redc(V) R^2 / R) s / R, the plain version's order and the JAX
+    normalize times s, on relaxed limbs at the contract's limits and at
+    scalars 0, 1, p - 1 and a random one."""
+    rng = np.random.default_rng(40 + lin)
+    t = _relaxed_at_limits(rng, lin, 64)
+    tt = torch.from_numpy(t.astype(np.int32))
+    norm = jnp.asarray(np.asarray(JL.jnormalize(jnp.asarray(t.T.astype(np.uint32)))))
+    x = L.redc(tt.T.to(torch.int64))
+    r2 = L.const("R2_LIMBS", "cpu")
+    for s in (0, 1, P - 1, rand_field(rng, 1)[0]):
+        ts = L.pack_scalar(s)
+        folded = K.mont_mul_plain(x, K.mont_mul_plain(ts, r2))
+        assert torch.equal(folded, K.mont_mul_plain(K.mont_mul_plain(x, r2), ts))
+        assert torch.equal(folded, K.normalize(tt, ts))
+        assert np.array_equal(limbs_to_numpy(folded), np.asarray(
+            JL.jmul(norm, jnp.broadcast_to(JL.pack_scalar(s), norm.shape))))
+
+
 # ------------------------------------------------------------------ rounds
 
 @pytest.mark.parametrize("G", [1, 3, 7])

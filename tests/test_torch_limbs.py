@@ -165,6 +165,70 @@ def test_eq_table_device_matches_jax_and_host():
     assert L.unpack(K.eq_table(tz[:0])) == [1]
 
 
+def eq_table_split_model(z: torch.Tensor, bits: int) -> torch.Tensor:
+    """The eq kernel's split (csrc/kernels.cu k_eq_table) in plain
+    products: the k variables cut MSB-first into factor tables of at most
+    `bits` variables (T_0 takes the rest at the top), each entry the product
+    of its factors; the value of row r = b >> kl (kl the last table's
+    variables) the product of the upper tables' entries; entry b that value
+    times the last table's entry b & (2^kl - 1)."""
+    k = z.shape[0]
+    one = L.const("MONT_ONE_LIMBS", z.device)
+    if k == 0:
+        return one.reshape(1, 16).clone()
+    n = -(-k // bits)
+    w0 = k - bits * (n - 1)
+    kl = k if n == 1 else bits
+    tables = []
+    for t in range(n):
+        w, v = (w0, 0) if t == 0 else (bits, w0 + bits * (t - 1))
+        i = torch.arange(1 << w)
+        x = None
+        for q in range(w):
+            bit = ((i >> (w - 1 - q)) & 1).bool()[:, None]
+            zq = z[v + q].expand(1 << w, 16)
+            f = torch.where(bit, zq, L.sub_mod(one, z[v + q]).expand(1 << w, 16))
+            x = f.contiguous() if x is None else K.mont_mul_plain(x, f.contiguous())
+        tables.append(x)
+    r = torch.arange(1 << (k - kl))
+    if n == 1:
+        rows = one.reshape(1, 16)
+    else:
+        rows = tables[0][r >> (bits * (n - 2))]
+        for t in range(1, n - 1):
+            rows = K.mont_mul_plain(rows, tables[t][(r >> (bits * (n - 2 - t)))
+                                                    & ((1 << bits) - 1)])
+    return K.mont_mul_plain(rows.repeat_interleave(1 << kl, dim=0),
+                            tables[-1].repeat(r.numel(), 1))
+
+
+@pytest.mark.parametrize("k", range(13))
+def test_eq_table_split_model_matches_plain_jax_and_host(k):
+    """The eq kernel's split at every table width (the kernel's EQ_BITS
+    among them), against the doubling (eq_table_plain, the wrapper's CPU
+    path), the host table, and, at k = 5 and 6 (one and two of the kernel's
+    tables), the JAX limb engine's jeq_table: this pins the MSB-first index
+    order of the split on the CPU.  jeq_table's XLA:CPU compile grows with k
+    (some 25 s alone at k = 12), so the larger k are held to the host."""
+    z = rand_field(np.random.default_rng(50 + k), k)
+    if k > 2:
+        z[1], z[-1] = 0, P - 1
+    jz, tz = both(z)
+    want = K.eq_table_plain(tz)
+    assert L.unpack(want) == eq_table(z)
+    assert torch.equal(K.eq_table(tz), want)
+    for bits in range(1, max(k, K.EQ_BITS) + 1):
+        assert torch.equal(eq_table_split_model(tz, bits), want), bits
+    if k in (5, 6):
+        assert same(want, JL.jeq_table(jz))
+
+
+def test_eq_table_refuses_a_point_beyond_its_limit():
+    z = L.pack([3] * (K.EQ_MAX_K + 1))
+    with pytest.raises(ValueError):
+        K.eq_table(z)
+
+
 def test_fr_cuh_constants():
     """Every constant of the CUDA field header against field.P."""
     src = (ROOT / "gkr_tpu_torch" / "csrc" / "fr.cuh").read_text()
