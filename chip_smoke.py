@@ -8,13 +8,18 @@ Phases, each fatal on failure:
      reading; the peaks take the larger), device count;
   2. build: the CUDA kernels from gkr_tpu_torch/csrc with one nvcc (sm_90a);
      ptxas's registers and spills of every kernel (fails on a spill of a
-     round eval, the eq table or normalize); the round evals' tile and
-     resident blocks an SM;
-     the SASS counts of the probes (IMADs a repetition of the peak chain, a
-     Montgomery product of each variant, moves left out);
+     kernel whose product is fr_mul -- mont_mul, fold, the round evals, the
+     eq table, normalize, the round tail's sum -- or of any Montgomery
+     chain instance); the round evals' tile and resident blocks an SM;
+     the SASS counts of the probes (IMADs a repetition of the peak chain;
+     a Montgomery product of each variant: IMADs without moves, IMAD.WIDE,
+     IMAD.HI, DFMA, FP64-pipe instructions, all instructions, its floor);
   3. kernels: the card's IMAD rate as the peak probe reads it, beside the
-     card's peak (SMs x 64 x the peak SM clock), which with the least SASS count
-     of a Montgomery product sets every compute bound; then each kernel against its
+     card's peak (SMs x 64 x the peak SM clock), which with the price of a
+     Montgomery product (probes.sass_summary: the least IMAD count of the
+     integer variants, lowered to the FP64 variant's floor where that is
+     lower) sets every compute bound; a reading faster than CEILING x its
+     bound's rate fails (the bound would be wrong); then each kernel against its
      plain PyTorch version on the card at the shapes of the path that runs
      it (n = 2^20; the wiring plans of synth_circuit(20, 16); a bucket of
      70,000 gates; G = 1 and 132 round partials, the eval grid of a 2^20
@@ -48,7 +53,8 @@ Phases, each fatal on failure:
      (torch.cuda.set_sync_debug_mode);
   8. the port bench, gkr_tpu_torch.bench.main() at k = 20: its JSON line,
      value > 0 and 0 < sol_vs_chip <= 1.05;
-  9. the probe commands `micro` and `tune` (gkr_tpu_torch.probes);
+  9. the probe commands `micro` and `tune` (gkr_tpu_torch.probes; tune
+     times every variant at every block width);
 then one JSON line of every kernel with its launches, time and bound.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it.  Imports nothing of jax or gkr_tpu.
@@ -66,9 +72,9 @@ import warnings
 import numpy as np
 import torch
 
-from gkr_tpu_torch.probes import (FP32_PER_SM_CLOCK, IMAD_PER_SM_CLOCK, event_ms,
-                                  max_sm_clock_hz, peak_clock_hz, peak_per_s,
-                                  queued_ms, spin_clock_hz)
+from gkr_tpu_torch.probes import (FP32_PER_SM_CLOCK, IMAD_PER_SM_CLOCK, check_bound,
+                                  event_ms, max_sm_clock_hz, peak_clock_hz,
+                                  peak_per_s, queued_ms, spin_clock_hz)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 ELEM_BYTES = 64                  # one field element: 16 int32 limbs
@@ -102,7 +108,8 @@ LAUNCHES_FROM_PER_ROUND = ("phase1_eval", "phase2_eval")
 LAUNCHES_FROM_PIPELINED = ("mimc_multi",)         # r*, one a layer
 # The kernels line takes the other probes' launches from the path that runs them.
 LAUNCHES_FROM_PROBES = ("u32_mul_chain", "micro_op", "mont_chain_cios32",
-                        "mont_chain_school", "mont_chain_lat")
+                        "mont_chain_school", "mont_chain_lat", "mont_chain_f64",
+                        "mont_chain_cc")
 
 
 def smi(fields: str, fmt: str = "csv,noheader") -> str:
@@ -197,8 +204,9 @@ def timed_backend(TorchBackend):
 
 def phase_kernels(K, L, P, R, sm_clock_hz, imad_rate, imad_per_product):
     """Each kernel against its plain version at the path's shapes.  Compute
-    bounds take `imad_per_product` IMADs a Montgomery product (the least
-    SASS count) at `imad_rate` IMADs a second (the card's peak)."""
+    bounds take `imad_per_product` IMAD slots a Montgomery product (the
+    price of probes.sass_summary) at `imad_rate` IMADs a second (the card's
+    peak)."""
     rng = np.random.default_rng(2024)
     dev = DEVICE
     edges = edge_values(P, R)
@@ -219,7 +227,8 @@ def phase_kernels(K, L, P, R, sm_clock_hz, imad_rate, imad_per_product):
                library_ms=None, serial=False, ops_ms=None,
                source="gkr_tpu_torch/csrc/kernels.cu", rtol=None):
         """Hold got to want (bit-equal, or within a relative `rtol` for
-        floats) and keep the kernel's row."""
+        floats), hold the reading to its bound (check_bound), and keep the
+        kernel's row."""
         err = max_abs_err(got, want)
         same = (torch.equal(got, want) if rtol is None
                 else torch.allclose(got, want, rtol=rtol, atol=0))
@@ -227,6 +236,7 @@ def phase_kernels(K, L, P, R, sm_clock_hz, imad_rate, imad_per_product):
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version (max abs error {err})")
         b_ms, b_by = bound(nbytes, products, serial, ops_ms)
+        check_bound(name, ms, b_ms)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -346,25 +356,37 @@ def only_eval_kernels(name, fn, calls=5, tries=3):
                              f"kernel alone once a call")
 
 
-# Kernels whose ptxas report must show no spill, by a piece of the mangled name
-NO_SPILL = {"k_evalILi4E": "phase 1, k_eval<4>", "k_evalILi3E": "phase 2, k_eval<3>",
+# Kernels whose ptxas report must show no spill, by a piece of the mangled
+# name: every kernel whose product is fr_mul, and every Montgomery chain
+# instance (the variants x 2 depths x 4 block widths)
+NO_SPILL = {"k_mont_mul": "mont_mul, k_mont_mul", "k_fold": "fold, k_fold",
+            "k_evalILi4E": "phase 1, k_eval<4>", "k_evalILi3E": "phase 2, k_eval<3>",
             "k_eq_table": "eq table, k_eq_table",
             "k_normalizeILb0E": "normalize, k_normalize<false>",
-            "k_normalizeILb1E": "normalize with its scalar, k_normalize<true>"}
+            "k_normalizeILb1E": "normalize with its scalar, k_normalize<true>",
+            "k_round_tail": "round tail (its sum's products), k_round_tail",
+            "k_mont_chain": "Montgomery chain, k_mont_chain"}
 
 
 def kernel_report(K, ptxas: dict[str, str]):
     """The registers and spills ptxas reports for the kernels of NO_SPILL
-    (fails on a spill or a missing report), and the eval kernels' residency
-    on this card."""
+    (fails on a spill or a missing report: one for each kernel, one for
+    each Montgomery chain instance), and the eval kernels' residency on
+    this card."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chains = len(K.MONT_VARIANTS) * len(K.MONT_DEPTHS) * len(K.MONT_BLOCKS)
     for key, label in NO_SPILL.items():
-        props = [p for name, p in ptxas.items() if key in name]
-        if len(props) != 1:
-            raise AssertionError(f"{label}: no one ptxas report: {props}")
-        if " 0 bytes spill stores, 0 bytes spill loads" not in props[0]:
-            raise AssertionError(f"{label}: spills:{props[0]}")
-        print(f"  {label}:{props[0]}", flush=True)
+        reports = {name: p for name, p in ptxas.items() if key in name}
+        if len(reports) != (chains if key == "k_mont_chain" else 1):
+            raise AssertionError(f"{label}: {len(reports)} ptxas reports: {reports}")
+        for name, props in reports.items():
+            if " 0 bytes spill stores, 0 bytes spill loads" not in props:
+                raise AssertionError(f"{label} {name}: spills:{props}")
+        if len(reports) == 1:
+            print(f"  {label}:{next(iter(reports.values()))}", flush=True)
+        else:
+            print(f"  {label}: {len(reports)} instances, no spill (their ptxas "
+                  f"lines above)", flush=True)
     for tables, label in ((4, "phase 1, k_eval<4>"), (3, "phase 2, k_eval<3>")):
         a = K.eval_attrs(tables)
         warps = a["blocks_per_sm"] * a["threads"] // 32
@@ -812,8 +834,9 @@ def phase_card_vs_cpu(F, prove, verify, TorchBackend, synth_circuit, mle_struct,
 def phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass):
     """The bench's three probe kernels against their plain versions at the
     probes' shapes: (16, 2^20) u32 words, the same as i32/f32 words, 2^20
-    Montgomery elements with edge values in the first rows.  Every
-    Montgomery variant is bound by one count a product, the least."""
+    Montgomery elements with edge values in the first rows.  Every integer
+    Montgomery variant is bound by the shared price a product; a variant on
+    the FP64 pipe by its own floor (probes.product_floor)."""
     dev = DEVICE
     words = probes.ROWS * probes.COLS
 
@@ -865,7 +888,7 @@ def phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass):
           flush=True)
     del a, b, got, want
 
-    # mont_chain, both variants, depths 1 and 9, every block width: bit-exact
+    # mont_chain, every variant, depths 1 and 9, every block width: bit-exact
     a, b = probes.mont_inputs(dev)
     edges = edge_values(P, R)
     with_edges(a, [x for x in edges for _ in edges], L)
@@ -884,15 +907,21 @@ def phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass):
         pairs = [(x, y) for x in edges for y in edges]
         if host != [x * pow(y * r_inv, depth, P) % P for x, y in pairs]:
             raise AssertionError(f"mont_chain {variant}: edge values differ from host ints")
+        floor = sass[f"floor_per_mont_mul_{variant}"]
         record(f"mont_chain_{variant}", "scripts/tune_pallas_mul.py:92", got, want,
                event_ms(lambda: K.mont_chain(a, b, depth, variant), 20),
                event_ms(lambda: K.mont_chain_plain(a, b, depth), 1, 1),
-               3 * n * ELEM_BYTES, depth * n, source="gkr_tpu_torch/csrc/probes.cu")
-        print(f"    (depth {depth}, block 256; SASS: "
-              f"{sass[f'imad_per_mont_mul_{variant}']:g} IMADs without moves, "
-              f"{sass[f'wide_per_mont_mul_{variant}']:g} of them IMAD.WIDE, "
-              f"{sass[f'instr_per_mont_mul_{variant}']:g} instructions a product)",
-              flush=True)
+               3 * n * ELEM_BYTES, depth * n, source="gkr_tpu_torch/csrc/probes.cu",
+               ops_ms=(depth * n * floor / imad_rate * 1e3
+                       if variant in K.MONT_FP64 else None))
+        print(f"    (depth {depth}, block 256; SASS a product: "
+              f"{sass[f'imad_per_mont_mul_{variant}']:g} IMADs without moves, of "
+              f"them {sass[f'wide_per_mont_mul_{variant}']:g} IMAD.WIDE and "
+              f"{sass[f'hi_per_mont_mul_{variant}']:g} IMAD.HI; "
+              f"{sass[f'dfma_per_mont_mul_{variant}']:g} DFMA of "
+              f"{sass[f'fp64_per_mont_mul_{variant}']:g} FP64-pipe; "
+              f"{sass[f'instr_per_mont_mul_{variant}']:g} instructions; floor "
+              f"{floor:g} IMAD slots)", flush=True)
     del a, b, got, want
     torch.cuda.synchronize()
 
@@ -1009,7 +1038,16 @@ def main() -> int:
     if sass["peak_imad_per_rep"] != K.CHAINS:
         raise AssertionError(f"the peak chain issues {sass['peak_imad_per_rep']} IMADs "
                              f"a repetition, not {K.CHAINS}: the compiler folded it")
-    imad_per_product = sass["imad_per_mont_mul"]
+    imad_per_product = sass["price_per_mont_mul"]
+    print("  a Montgomery product's SASS, by variant (depth 9 less depth 1, block "
+          "256, over 8): IMAD without moves / IMAD.WIDE / IMAD.HI / DFMA / FP64 "
+          "pipe / instructions -> floor in IMAD slots "
+          f"(IMAD.WIDE at {probes.IMAD_WIDE_PASSES} pass, IMAD.HI at "
+          f"{probes.IMAD_HI_PASSES}):", flush=True)
+    for v in K.MONT_VARIANTS:
+        print(f"    {v:7s} " + " / ".join(f"{sass[f'{key}_per_mont_mul_{v}']:g}" for key in
+                                       ("imad", "wide", "hi", "dfma", "fp64", "instr"))
+              + f" -> {sass[f'floor_per_mont_mul_{v}']:g}", flush=True)
 
     t0 = time.perf_counter()
     circuit, inputs = synth_circuit(20, 16)
@@ -1033,9 +1071,10 @@ def main() -> int:
     print(f"  IMAD rate: peak probe reads {measured / 1e12:.3f} T/s (marginal), "
           f"{measured / imad_rate:.4f} of the card's {sms} SMs x {IMAD_PER_SM_CLOCK} "
           f"x peak SM clock = {imad_rate / 1e12:.3f} T/s", flush=True)
-    print(f"  bounds: {imad_per_product:g} IMADs a Montgomery product (the least of the "
-          f"variants' SASS, moves left out) at the card's {imad_rate / 1e12:.3f} T/s",
-          flush=True)
+    print(f"  bounds: {imad_per_product:g} IMAD slots a Montgomery product (the least "
+          f"IMAD count of the integer variants, {sass['imad_per_mont_mul']:g}, lowered "
+          f"to the FP64 variant's floor where that is lower) at the card's "
+          f"{imad_rate / 1e12:.3f} T/s", flush=True)
     rows, record, bound = phase_kernels(K, L, P, R, sm_clock_hz, imad_rate,
                                         imad_per_product)
     phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit)

@@ -21,10 +21,11 @@ seeds) and prints ONE JSON line with `bench.py`'s field names:
   sol_fraction             mont_mul_per_sec / kernel_peak_mul_per_sec
   roofline                 hbm_min_ms (bench.py's byte model at the card's
                            memory rate), vpu_min_ms (the layer's Montgomery
-                           products x the IMADs of one product in the
-                           probes' SASS, at the card's IMAD peak),
+                           products x the price of one product in the
+                           probes' SASS, `probes.sass_summary`, in IMAD
+                           slots, at the card's IMAD peak),
                            serial_fs_min_ms (the 2k round hashes' dependent
-                           products at one IMAD a clock of one thread),
+                           products at one slot a clock of one thread),
                            chip_min_ms (their max), sol_vs_chip (chip_min_ms
                            / layer_ms); beside them the readings the floors
                            do not use: the peak probe's IMAD rate and the
@@ -342,12 +343,13 @@ def roofline(dt: float, n: int, mont_muls: int) -> tuple[dict | None, str | None
     k = n.bit_length() - 1
     vpu_gops = probes.measure_vpu_peak()
     t_hash = probes.measure_hash_latency()
-    imad_per_mul = probes.probe_sass()["imad_per_mont_mul"]
+    sass = probes.probe_sass()
+    price = sass["price_per_mont_mul"]
     imad_peak = probes.peak_per_s(probes.IMAD_PER_SM_CLOCK)
     serial_products = 4 * K.MIMC_ROUNDS * hashed_elements(k)
     hbm_min = _min_hbm_bytes(n, n // 2, n // 2) / (gbps * 1e9)
-    vpu_min = mont_muls * imad_per_mul / imad_peak
-    serial_min = serial_products * imad_per_mul / probes.peak_clock_hz()
+    vpu_min = mont_muls * price / imad_peak
+    serial_min = serial_products * price / probes.peak_clock_hz()
     chip_min = max(hbm_min, vpu_min, serial_min)
     sol = chip_min / dt
     if sol > SOL_LIMIT:
@@ -358,7 +360,8 @@ def roofline(dt: float, n: int, mont_muls: int) -> tuple[dict | None, str | None
         "hbm_gbps": gbps,
         "vpu_u32_gops_peak": round(imad_peak / 1e9, 1),
         "vpu_u32_gops_measured": round(vpu_gops, 1),
-        "imad_per_mont_mul_sass": imad_per_mul,
+        "imad_per_mont_mul_sass": sass["imad_per_mont_mul"],
+        "price_per_mont_mul_sass": price,
         "t_hash_ms_measured": round(t_hash * 1e3, 4),
         "hbm_min_ms": round(hbm_min * 1e3, 3),
         "vpu_min_ms": round(vpu_min * 1e3, 3),

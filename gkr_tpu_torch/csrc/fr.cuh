@@ -4,14 +4,24 @@
 // Storage (what the kernels read and write): one element is 16 uint32 slots,
 // each holding a 16-bit limb, least significant first -- 64 bytes, the
 // layout of the port's int32 limb tensors.  Inside a thread an element is
-// repacked into 8 32-bit words and multiplied by CIOS (coarsely integrated
-// operand scanning) Montgomery multiplication with a 32-bit radix.  R is
-// 2^256 for both limb widths, so results are the same canonical values as
-// the 16-bit reference; the 32-bit factor is -p^-1 mod 2^32 (FR_NPRIME32),
-// not the 16-bit one.
+// repacked into 8 32-bit words (Fr).  R is 2^256 for every product here, so
+// results are the same canonical values as the 16-bit reference.
 //
-// Every Fr a function here takes or returns is canonical (< p).  The hash
-// runs on its own representation, Fr29, at the end of this file.
+// Three Montgomery products of canonical values (a below 3p, b below p),
+// bit-equal by construction:
+//   fr_mul_cios32  CIOS on 8 x 32-bit words, carries as 64-bit sums
+//                  (the factor is -p^-1 mod 2^32, FR_NPRIME32, not the
+//                  16-bit one);
+//   fr_mul_cc      the same CIOS with its carries in the multiply-adds
+//                  (PTX madc chains, even and odd column accumulators);
+//   fr_mul_f64     on the FP64 pipe: 52-bit limbs as doubles, exact FMA
+//                  splits, 64-bit integer columns.
+// fr_mul, the throughput kernels' product, is fr_mul_cc: the fastest of
+// them in a chain of products on the card (`probes tune`, PERF.md section 6).
+//
+// Every Fr a function here takes or returns is canonical (< p) unless it
+// says otherwise.  The hash runs on its own representation, Fr29, at the
+// end of this file.
 #pragma once
 
 #include <stdint.h>
@@ -21,6 +31,16 @@
 static __constant__ uint32_t FR_P[8] = {
     0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
     0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+
+// p's words as immediates (the cc product's PTX chains)
+#define FR_P0 0xf0000001u
+#define FR_P1 0x43e1f593u
+#define FR_P2 0x79b97091u
+#define FR_P3 0x2833e848u
+#define FR_P4 0x8181585du
+#define FR_P5 0xb85045b6u
+#define FR_P6 0xe131a029u
+#define FR_P7 0x30644e72u
 
 // -p^-1 mod 2^32
 #define FR_NPRIME32 0xefffffffu
@@ -142,7 +162,7 @@ __device__ __forceinline__ Fr fr_twice_minus(const Fr& a, const Fr& b) {
 // Each 64-bit sum t + x*y + c is at most 2^64 - 1, so no sum overflows.
 // a may be any value below 3p (b below p): the result, below
 // a b / 2^256 + p < 1.57 p, is still canonical after one subtraction.
-__device__ __forceinline__ Fr fr_mul(const Fr& a, const Fr& b) {
+__device__ __forceinline__ Fr fr_mul_cios32(const Fr& a, const Fr& b) {
   uint32_t t[10];
 #pragma unroll
   for (int j = 0; j < 10; ++j) t[j] = 0u;
@@ -177,6 +197,266 @@ __device__ __forceinline__ Fr fr_mul(const Fr& a, const Fr& b) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) r.w[j] = t[j];
   return fr_reduce_once(r);
+}
+
+// ---------------------------------------------------------------------- cc
+// fr_mul_cios32's CIOS with the carries in the multiply-adds: PTX
+// mad.lo.cc / madc.hi.cc chains, so that a word product's carry costs no
+// instruction of its own (the shape of Supranational's sppark mont_t).  The
+// partial sum T is held as two accumulators: ev with column k at word k and
+// od with column k + 1 at word k.  The products of a's even words have their
+// low halves at even columns and their high halves at odd ones, so
+// sum_j a_2j b_i 2^(64 j) is one 8-word number, added to ev by one carry
+// chain; a's odd words go to od the same way.  After m p clears column 0 the
+// shift by one word swaps the roles: od is then the even-column accumulator
+// and ev, from its word 1 on, the odd one.  T stays below (a + p) 2^32 <
+// 2^288 (a < 3p, 4p < 2^256), so od, which holds T's words 1..8, never
+// carries out of its top word; tests/test_torch_fr_mul_model.py runs the
+// chains on an explicit carry flag and asserts it.
+
+// One CIOS word: T += a b_i, m = T_0 (-p^-1), T += m p; ev's word 0 is then 0.
+__device__ __forceinline__ void cc_step(uint32_t* ev, uint32_t* od, const uint32_t* a,
+                                        uint32_t bi, bool first) {
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      od[j] = a[j + 1] * bi;
+      od[j + 1] = __umulhi(a[j + 1], bi);
+      ev[j] = a[j] * bi;
+      ev[j + 1] = __umulhi(a[j], bi);
+    }
+  } else {
+    // ev's column 0 takes od's word 1 (the old ev's column 1); od shifts
+    // down two words (one for the step, one for the role swap) while it
+    // takes a's odd words times b_i; the carry out of ev's first add rides
+    // the same chain
+    asm("add.cc.u32 %0, %0, %2;\n\t"
+        "madc.lo.cc.u32 %1, %9, %13, %3;\n\t"
+        "madc.hi.cc.u32 %2, %9, %13, %4;\n\t"
+        "madc.lo.cc.u32 %3, %10, %13, %5;\n\t"
+        "madc.hi.cc.u32 %4, %10, %13, %6;\n\t"
+        "madc.lo.cc.u32 %5, %11, %13, %7;\n\t"
+        "madc.hi.cc.u32 %6, %11, %13, %8;\n\t"
+        "madc.lo.cc.u32 %7, %12, %13, 0;\n\t"
+        "madc.hi.u32 %8, %12, %13, 0;"
+        : "+r"(ev[0]), "+r"(od[0]), "+r"(od[1]), "+r"(od[2]), "+r"(od[3]),
+          "+r"(od[4]), "+r"(od[5]), "+r"(od[6]), "+r"(od[7])
+        : "r"(a[1]), "r"(a[3]), "r"(a[5]), "r"(a[7]), "r"(bi));
+    // ev += a's even words times b_i; the carry out goes to od's top word
+    asm("mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+        "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+        "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+        "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+        "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+        "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+        "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+        "addc.u32 %8, %8, 0;"
+        : "+r"(ev[0]), "+r"(ev[1]), "+r"(ev[2]), "+r"(ev[3]), "+r"(ev[4]),
+          "+r"(ev[5]), "+r"(ev[6]), "+r"(ev[7]), "+r"(od[7])
+        : "r"(a[0]), "r"(a[2]), "r"(a[4]), "r"(a[6]), "r"(bi));
+  }
+  const uint32_t mi = ev[0] * FR_NPRIME32;
+  // od += p's odd words times m; od's top word never carries out
+  asm("mad.lo.cc.u32 %0, %8, %9, %0;\n\t"
+      "madc.hi.cc.u32 %1, %8, %9, %1;\n\t"
+      "madc.lo.cc.u32 %2, %8, %10, %2;\n\t"
+      "madc.hi.cc.u32 %3, %8, %10, %3;\n\t"
+      "madc.lo.cc.u32 %4, %8, %11, %4;\n\t"
+      "madc.hi.cc.u32 %5, %8, %11, %5;\n\t"
+      "madc.lo.cc.u32 %6, %8, %12, %6;\n\t"
+      "madc.hi.u32 %7, %8, %12, %7;"
+      : "+r"(od[0]), "+r"(od[1]), "+r"(od[2]), "+r"(od[3]), "+r"(od[4]),
+        "+r"(od[5]), "+r"(od[6]), "+r"(od[7])
+      : "r"(mi), "n"(FR_P1), "n"(FR_P3), "n"(FR_P5), "n"(FR_P7));
+  // ev += p's even words times m, clearing ev's word 0; the carry to od's top
+  asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %10, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+      "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+      "madc.lo.cc.u32 %4, %9, %12, %4;\n\t"
+      "madc.hi.cc.u32 %5, %9, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, %9, %13, %6;\n\t"
+      "madc.hi.cc.u32 %7, %9, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(ev[0]), "+r"(ev[1]), "+r"(ev[2]), "+r"(ev[3]), "+r"(ev[4]),
+        "+r"(ev[5]), "+r"(ev[6]), "+r"(ev[7]), "+r"(od[7])
+      : "r"(mi), "n"(FR_P0), "n"(FR_P2), "n"(FR_P4), "n"(FR_P6));
+}
+
+// a * b / 2^256 mod p, a below 3p, b below p (fr_mul_cios32's contract and
+// result); 8 steps, the accumulators swapping roles each step, then od
+// (column k at word k - 1 by now) merged into ev and one subtraction.
+__device__ __forceinline__ Fr fr_mul_cc(const Fr& a, const Fr& b) {
+  uint32_t ev[8], od[8];
+#pragma unroll
+  for (int i = 0; i < 8; i += 2) {
+    cc_step(ev, od, a.w, b.w[i], i == 0);
+    cc_step(od, ev, a.w, b.w[i + 1], false);
+  }
+  Fr r;
+  asm("add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, 0;"
+      : "+r"(ev[0]), "+r"(ev[1]), "+r"(ev[2]), "+r"(ev[3]), "+r"(ev[4]),
+        "+r"(ev[5]), "+r"(ev[6]), "+r"(ev[7])
+      : "r"(od[1]), "r"(od[2]), "r"(od[3]), "r"(od[4]), "r"(od[5]),
+        "r"(od[6]), "r"(od[7]));
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = ev[j];
+  return fr_reduce_once(r);
+}
+
+// --------------------------------------------------------------------- f64
+// The product on the FP64 pipe, after Emmart, Zheng and Weems, "Faster
+// Modular Exponentiation Using Double Precision Floating Point Arithmetic
+// on the GPU" (ARITH 2018).  The integer pipes carry every other product
+// here; the FP64 pipe, as wide as the IMAD pipe on an H100 (64 lanes an
+// SM), was idle.  tests/test_torch_fr_mul_model.py models every step below
+// and asserts each bound stated here.
+//
+// Limbs: an element below 2^256 is 5 limbs of 52 bits, each an exact double
+// (Fr52; the top limb below 2^48).  A limb product x y < 2^104 is split
+// exactly by two FMAs (f52_mac):
+//   hi  = fma_rz(x, y, 2^104): x y + 2^104 lies in [2^104, 2^105), where a
+//         double's ulp is 2^52, so rounding toward zero gives 2^104 + H 2^52
+//         with H = floor(x y / 2^52), and hi's bits are those of 2^104 plus H;
+//   sub = (2^104 + 2^52) - hi = (1 - H) 2^52: a difference of 53 bits,
+//         exact;
+//   lo  = fma(x, y, sub) = L + 2^52 with L = x y - H 2^52 in [0, 2^52):
+//         the exact result lies in [2^52, 2^53), where the ulp is 1, so it
+//         is exact, and lo's bits are those of 2^52 plus L.
+// Columns: x y's parts go to 64-bit integer columns c (L) and c + 1 (H) as
+// the doubles' bit patterns.  Each column starts at minus the exponent bits
+// of all the patterns it will take (f52_col_init), so once they are in it
+// holds the true sum; the exponent bits are multiples of 2^52, so its low
+// 52 bits are exact at any time.  A column takes at most 18 terms below
+// 2^52 and a carry below 2^6: below 2^57, far from 2^64.
+// Reduction, product scanning: column c takes its limb products and the
+// terms m_k p_(c-k) of the factors already taken; for c < 5 it then takes
+// m_c = (column c mod 2^52) (-p^-1) mod 2^52 -- with integer multiplies, as
+// an exact double through the 2^52 offset -- and m_c p_0, which clears its
+// low 52 bits; every column then carries c >> 52 into the next.  The last
+// step clears 48 bits with a 48-bit m: 4 x 52 + 48 = 256, so the radix stays
+// R = 2^256 and nothing outside the product changes.  The result is T /
+// 2^256 = (column 4 >> 48) + 16 (columns 5..9 at 52 bits a column), below
+// a b / 2^256 + p < 1.57 p for a below 3p and b below p; one subtraction.
+#define F52_LIMBS 5
+#define F52_COLS (2 * F52_LIMBS)
+#define F52_MASK 0xfffffffffffffull          // 2^52 - 1
+#define F52_NP 0x1f593efffffffull            // -p^-1 mod 2^52
+#define F52_LO_BITS 0x4330000000000000ull    // the bits of the double 2^52
+#define F52_HI_BITS 0x4670000000000000ull    // the bits of the double 2^104
+
+// p in 52-bit limbs, least significant first
+static __constant__ double FR_P52[F52_LIMBS] = {
+    (double)0x1f593f0000001ull, (double)0x4879b9709143eull,
+    (double)0x181585d2833e8ull, (double)0xa029b85045b68ull,
+    (double)0x30644e72e131ull};
+
+struct Fr52 {
+  double d[F52_LIMBS];
+};
+
+// limb pairs (i, j), 0 <= i, j < 5, with i + j = s
+__host__ __device__ constexpr int f52_pairs(int s) {
+  return s < 0 || s > 2 * (F52_LIMBS - 1)
+             ? 0
+             : (s < F52_LIMBS - 1 ? s : 2 * (F52_LIMBS - 1) - s) + 1;
+}
+
+// Column c's start: minus the exponent bits of its patterns, mod 2^64 --
+// 2 pairs(c) low parts and 2 pairs(c - 1) high ones, the product's and the
+// reduction's.
+__host__ __device__ constexpr unsigned long long f52_col_init(int c) {
+  return 0ull - (unsigned long long)(2 * f52_pairs(c)) * F52_LO_BITS -
+         (unsigned long long)(2 * f52_pairs(c - 1)) * F52_HI_BITS;
+}
+
+// The limb hi20:lo32 as an exact double: the bits 0x433 | limb are 2^52 +
+// limb, and the subtraction of 2^52 is exact.
+__device__ __forceinline__ double f52_double(uint32_t lo32, uint32_t hi20) {
+  return __dsub_rn(__hiloint2double((int)(hi20 | 0x43300000u), (int)lo32), 0x1p52);
+}
+
+// 8 words (value below 2^256) -> limb i = bits [52 i, 52 i + 52)
+__device__ __forceinline__ Fr52 fr52_from_fr(const Fr& x) {
+  Fr52 r;
+  r.d[0] = f52_double(x.w[0], x.w[1] & 0xfffffu);
+  r.d[1] = f52_double(__funnelshift_r(x.w[1], x.w[2], 20),
+                      __funnelshift_r(x.w[2], x.w[3], 20) & 0xfffffu);
+  r.d[2] = f52_double(__funnelshift_r(x.w[3], x.w[4], 8),
+                      __funnelshift_r(x.w[4], x.w[5], 8) & 0xfffffu);
+  r.d[3] = f52_double(__funnelshift_r(x.w[4], x.w[5], 28),
+                      __funnelshift_r(x.w[5], x.w[6], 28) & 0xfffffu);
+  r.d[4] = f52_double(__funnelshift_r(x.w[6], x.w[7], 16), x.w[7] >> 16);
+  return r;
+}
+
+// x y (x, y < 2^52, exact) into col[c] (its low 52 bits) and col[c + 1]
+// (the rest), as the note above splits it.
+__device__ __forceinline__ void f52_mac(unsigned long long* col, int c, double x,
+                                        double y) {
+  const double hi = __fma_rz(x, y, 0x1p104);
+  const double lo = __fma_rn(x, y, __dsub_rn(0x1p104 + 0x1p52, hi));
+  col[c] += (unsigned long long)__double_as_longlong(lo);
+  col[c + 1] += (unsigned long long)__double_as_longlong(hi);
+}
+
+// a * b / 2^256 mod p, a below 3p (8 words), b below p (as limbs).
+__device__ __forceinline__ Fr fr_mul_f64(const Fr& a, const Fr52& b) {
+  const Fr52 x = fr52_from_fr(a);
+  unsigned long long col[F52_COLS];
+#pragma unroll
+  for (int c = 0; c < F52_COLS; ++c) col[c] = f52_col_init(c);
+  double m[F52_LIMBS];
+#pragma unroll
+  for (int c = 0; c < F52_COLS; ++c) {
+#pragma unroll
+    for (int i = 0; i < F52_LIMBS; ++i)
+      if (c - i >= 0 && c - i < F52_LIMBS) f52_mac(col, c, x.d[i], b.d[c - i]);
+#pragma unroll
+    for (int k = 0; k < F52_LIMBS; ++k)
+      if (k < c && c - k < F52_LIMBS) f52_mac(col, c, m[k], FR_P52[c - k]);
+    if (c < F52_LIMBS) {
+      const unsigned long long mc =
+          (col[c] * F52_NP) & (c < F52_LIMBS - 1 ? F52_MASK : 0xffffffffffffull);
+      m[c] = __dsub_rn(__longlong_as_double((long long)(mc | F52_LO_BITS)), 0x1p52);
+      f52_mac(col, c, m[c], FR_P52[0]);
+    }
+    if (c < F52_COLS - 1) col[c + 1] += col[c] >> 52;
+  }
+  // columns 5..9 to 52 bits (the carries above), then T / 2^256 =
+  // low4 + 16 (c5 + 2^52 c6 + ... + 2^208 c9) into 8 words
+  const unsigned long long low4 = (col[4] >> 48) & 15ull;
+  const unsigned long long c5 = col[5] & F52_MASK, c6 = col[6] & F52_MASK,
+                           c7 = col[7] & F52_MASK, c8 = col[8] & F52_MASK, c9 = col[9];
+  Fr r;
+  r.w[0] = (uint32_t)(low4 | (c5 << 4));
+  r.w[1] = (uint32_t)((c5 >> 28) | (c6 << 24));
+  r.w[2] = (uint32_t)(c6 >> 8);
+  r.w[3] = (uint32_t)((c6 >> 40) | (c7 << 12));
+  r.w[4] = (uint32_t)(c7 >> 20);
+  r.w[5] = (uint32_t)c8;
+  r.w[6] = (uint32_t)((c8 >> 32) | (c9 << 20));
+  r.w[7] = (uint32_t)(c9 >> 12);
+  return fr_reduce_once(r);
+}
+
+// The throughput kernels' product: a * b / 2^256 mod p, a below 3p, b
+// below p, canonical.  cc: per product 317 SASS instructions, 151.625 of
+// the IMAD family (119 IMAD.WIDE, 9 IMAD.HI), no FP64; cios32 583 and
+// 232.125 (120 IMAD.WIDE), f64 393 and 30 beside 159.5 on the FP64 pipe
+// (`probes.sass_summary`).  In a chain of products over 2^20 elements on
+// an H100 it runs about 0.015 ms a pass against f64's 0.017 and cios32's
+// 0.026 (`probes tune`, PERF.md section 6).
+__device__ __forceinline__ Fr fr_mul(const Fr& a, const Fr& b) {
+  return fr_mul_cc(a, b);
 }
 
 __device__ __forceinline__ Fr fr_const(const uint32_t* c) {
@@ -237,10 +517,12 @@ __device__ __forceinline__ Fr fr_redc_wide(uint32_t T[17]) {
 // One thread runs the MiMC chain, so a product's cost is one warp's issue
 // of its instructions, and on an H100 one warp issues a 32x32->64-bit
 // IMAD.WIDE several times slower than a 32-bit IMAD or an IADD3: a product
-// is bound by its wide multiplies and by the carries around them.  fr_mul
-// spends 583 instructions (120 IMAD.WIDE) and ~1300 SM clocks a dependent
-// product (`probes tune`), most of it on 64-bit carry chains.  Here an
-// element is 9 limbs of 29 bits
+// is bound by its wide multiplies and by the carries around them.
+// fr_mul_cios32 spends 583 instructions (120 IMAD.WIDE) and ~1300 SM clocks
+// a dependent product (`probes tune`), most of it on 64-bit carry chains;
+// fr_mul (cc) 317 instructions (119 IMAD.WIDE) and ~1100 clocks, which
+// would save under 10% a product here and give up the squares' savings
+// below.  Here an element is 9 limbs of 29 bits
 // in 32-bit words (Fr29), and a product sums its 81 limb products (45 for
 // a square) into 17 64-bit columns, one IMAD.WIDE each: with limbs below
 // 2^30 a column stays below 9 * 2^60 + 9 * 2^58 + 2^35 < 2^64 (a square's

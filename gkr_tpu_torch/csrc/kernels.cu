@@ -33,6 +33,9 @@
 // ---------------------------------------------------------------- mont_mul
 // out[i] = a[i] * b[i / b_div] / R.  b_div = 1: elementwise; b_div = n: one
 // scalar for all; otherwise each b row serves b_div consecutive a rows.
+// Bytes bind, so the kernel keeps fr_mul_cios32: with fr_mul (cc) or
+// fr_mul_f64 it took more registers, held fewer warps an SM and read
+// slower (PERF.md section 6).
 __global__ void __launch_bounds__(THREADS)
 k_mont_mul(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
            uint32_t* __restrict__ out, long long n, long long b_div) {
@@ -40,11 +43,13 @@ k_mont_mul(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   if (i >= n) return;
   Fr x = fr_load(a + 16 * i);
   Fr y = fr_load(b + 16 * (i / b_div));
-  fr_store(out + 16 * i, fr_mul(x, y));
+  fr_store(out + 16 * i, fr_mul_cios32(x, y));
 }
 
 // -------------------------------------------------------------------- fold
 // m = (n/2) * T elements of output; lo is element i, hi is element i + m.
+// Bytes bind; the kernel keeps fr_mul_cios32: fr_mul (cc) read no faster
+// here (PERF.md section 6).
 __global__ void __launch_bounds__(THREADS)
 k_fold(const uint32_t* __restrict__ S, const uint32_t* __restrict__ r,
        uint32_t* __restrict__ out, long long m) {
@@ -53,7 +58,7 @@ k_fold(const uint32_t* __restrict__ S, const uint32_t* __restrict__ r,
   Fr rr = fr_load(r);
   Fr lo = fr_load(S + 16 * i);
   Fr hi = fr_load(S + 16 * (i + m));
-  fr_store(out + 16 * i, fr_add(lo, fr_mul(fr_sub(hi, lo), rr)));
+  fr_store(out + 16 * i, fr_add(lo, fr_mul_cios32(fr_sub(hi, lo), rr)));
 }
 
 // ------------------------------------------------------------ round evals
@@ -171,7 +176,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // across warps, and threads 0..2 each turn one y_t's relaxed limbs (value
 // < 1024 p) into words and reduce them mod p (REDC, then x R^2, as
 // k_normalize).  The partials are read through L2 (__ldcg): in a one-launch
-// eval other blocks of the grid wrote them.
+// eval other blocks of the grid wrote them.  Its three products, one a
+// thread, stay fr_mul_cios32: the round tail that runs it is the hash's
+// one-thread chain, redesigned on its own (fr_mul_lat).
 template <int NT>
 __device__ void sum_partials(const uint32_t* partials, int G, Fr* y) {
   __shared__ uint32_t red[NT / 32][TAIL_WORDS];
@@ -214,7 +221,7 @@ __device__ void sum_partials(const uint32_t* partials, int G, Fr* y) {
     T[8] = c;
 #pragma unroll
     for (int j = 9; j < 17; ++j) T[j] = 0u;
-    y[tid] = fr_mul(fr_redc_wide(T), fr_const(FR_R2));
+    y[tid] = fr_mul_cios32(fr_redc_wide(T), fr_const(FR_R2));
   }
   __syncthreads();
 }
@@ -383,10 +390,21 @@ k_eval(const uint32_t* __restrict__ S, const uint32_t* __restrict__ wbp,
 // registers.  Block g writes a contiguous share of the rows, EQ_BATCH rows
 // at a time: every thread takes the values of up to two of them (n - 2
 // products each), then warp w writes rows w, w + EQ_WARPS, ... of the batch
-// (lane l: one product and four 16-byte stores, so a warp writes a
-// contiguous 2 KB row); two barriers a batch, one batch a block at k = 20.
-// Every product is canonical, so the order of the products changes no limb:
-// the table is bit-equal to the doubling.
+// (lane l: one product, then the warp's contiguous 2 KB row); two barriers
+// a batch, one batch a block at k = 20.  Every product is canonical, so the
+// order of the products changes no limb: the table is bit-equal to the
+// doubling.
+//
+// The stores: with a faster product they bind.  A lane storing its own
+// entry (four 16-byte stores 64 bytes apart across the warp) took longer
+// without any product than the whole kernel took with them, and faster
+// products left the kernel no faster (PERF.md section 6).  So each warp
+// stages its row in shared memory (entry e's 16-byte unit q at 4 e + (q ^
+// ((e >> 1) & 3)): both the lane-per-entry writes and the contiguous reads
+// are free of bank conflicts) and stores it as four 512-byte runs, one a
+// store instruction.  The row products are fr_mul_f64's, not fr_mul's: at
+// one 512-thread block an SM its independent FMAs kept the sub-partitions
+// busier than cc's carry chains (the kernel read faster with them).
 #define EQ_BITS 5                         // variables of a factor table
 #define EQ_WIDTH (1 << EQ_BITS)           // its entries, one a lane
 #define EQ_MAX_K 32                       // variables a table takes at most
@@ -394,6 +412,7 @@ k_eval(const uint32_t* __restrict__ S, const uint32_t* __restrict__ wbp,
 #define EQ_THREADS 512
 #define EQ_WARPS (EQ_THREADS / 32)
 #define EQ_BATCH (2 * EQ_THREADS)         // rows whose values a block holds
+#define EQ_STAGE_BYTES (EQ_WARPS * EQ_WIDTH * 64)   // a 2 KB row a warp (dynamic)
 
 // z_j for index bit 1, 1 - z_j for 0
 __device__ __forceinline__ Fr eq_factor(const uint32_t* zj, int bit) {
@@ -415,6 +434,7 @@ __global__ void __launch_bounds__(EQ_THREADS, 1)
 k_eq_table(const uint32_t* __restrict__ z, int k, uint32_t* __restrict__ out) {
   __shared__ Fr tab[EQ_MAX_TABLES * EQ_WIDTH];     // T_t[i] at EQ_WIDTH t + i
   __shared__ Fr vals[EQ_BATCH];
+  extern __shared__ uint4 eq_stage[];              // EQ_STAGE_BYTES
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = (k + EQ_BITS - 1) / EQ_BITS;
   const int w0 = k - EQ_BITS * (n - 1);          // variables of T_0
@@ -437,14 +457,29 @@ k_eq_table(const uint32_t* __restrict__ z, int k, uint32_t* __restrict__ out) {
   const long long rows = 1LL << (k - kl);
   const long long r0 = rows * blockIdx.x / gridDim.x;
   const long long r1 = rows * (blockIdx.x + 1) / gridDim.x;
+  const Fr52 tl52 = fr52_from_fr(tl);
+  uint4* const stage = eq_stage + 4 * EQ_WIDTH * warp;
+  const int units = 4 << kl;                     // 16-byte units of a row
   for (long long rb = r0; rb < r1; rb += EQ_BATCH) {
     const int m = (int)(r1 - rb < EQ_BATCH ? r1 - rb : EQ_BATCH);
     for (int j = tid; j < m; j += EQ_THREADS) vals[j] = eq_row_value(tab, n, rb + j);
     __syncthreads();
 #pragma unroll 1
     for (int j = warp; j < m; j += EQ_WARPS) {
-      const Fr y = fr_mul(vals[j], tl);
-      if (writes) fr_store(out + 16 * (((rb + j) << kl) | lane), y);
+      const Fr y = fr_mul_f64(vals[j], tl52);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        stage[4 * lane + (q ^ ((lane >> 1) & 3))] =
+            make_uint4(y.w[2 * q] & 0xffffu, y.w[2 * q] >> 16,
+                       y.w[2 * q + 1] & 0xffffu, y.w[2 * q + 1] >> 16);
+      __syncwarp();
+      uint4* row = reinterpret_cast<uint4*>(out) + ((rb + j) << kl) * 4;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int u = 32 * s + lane, e = u >> 2;
+        if (u < units) row[u] = stage[4 * e + ((u & 3) ^ ((e >> 1) & 3))];
+      }
+      __syncwarp();
     }
     __syncthreads();
   }
@@ -716,8 +751,8 @@ static inline unsigned blocks_for(long long n) {
 // The blocks of `threads` threads of `kernel` that the card holds at once
 // (SMs x resident blocks an SM), queried once a device into `cache`.
 template <typename Kernel>
-static cudaError_t resident_blocks(Kernel kernel, int threads, int (&cache)[64],
-                                   long long* blocks) {
+static cudaError_t resident_blocks(Kernel kernel, int threads, int smem,
+                                   int (&cache)[64], long long* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess && dev < 64 && cache[dev]) {
@@ -727,7 +762,7 @@ static cudaError_t resident_blocks(Kernel kernel, int threads, int (&cache)[64],
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
   if (e != cudaSuccess) {
     cudaGetLastError();       // not left behind for the next launch's check
@@ -814,10 +849,22 @@ int gkr_eq_table(const void* z, int k, void* out, void* stream) {
   if (k < 1 || k > EQ_MAX_K) return (int)cudaErrorInvalidValue;
   static int cache[64] = {};
   long long blocks = 0;
-  const cudaError_t e = resident_blocks(k_eq_table, EQ_THREADS, cache, &blocks);
-  if (e != cudaSuccess) return (int)e;
+  static bool attr[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && !(dev < 64 && attr[dev])) {
+    e = cudaFuncSetAttribute(k_eq_table, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             EQ_STAGE_BYTES);
+    if (e == cudaSuccess && dev < 64) attr[dev] = true;
+  }
+  if (e == cudaSuccess)
+    e = resident_blocks(k_eq_table, EQ_THREADS, EQ_STAGE_BYTES, cache, &blocks);
+  if (e != cudaSuccess) {
+    cudaGetLastError();       // not left behind for the next launch's check
+    return (int)e;
+  }
   const long long rows = 1LL << (k - (k < EQ_BITS ? k : EQ_BITS));
-  k_eq_table<<<(unsigned)(rows < blocks ? rows : blocks), EQ_THREADS, 0,
+  k_eq_table<<<(unsigned)(rows < blocks ? rows : blocks), EQ_THREADS, EQ_STAGE_BYTES,
                (cudaStream_t)stream>>>((const uint32_t*)z, k, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
@@ -839,7 +886,7 @@ int gkr_normalize(const void* t, int lin, const void* s, void* out,
   }
   static int cache[64] = {};
   long long blocks = 0;
-  const cudaError_t e = resident_blocks(k_normalize<true>, THREADS, cache, &blocks);
+  const cudaError_t e = resident_blocks(k_normalize<true>, THREADS, 0, cache, &blocks);
   if (e != cudaSuccess) return (int)e;
   k_normalize<true><<<(unsigned)(blocks_for(n) < blocks ? blocks_for(n) : blocks),
                       THREADS, 0, (cudaStream_t)stream>>>(

@@ -4,7 +4,7 @@
 //   gkr_u32_mul_chain  8 u32 multiply chains an element, summed    bench.py _measure_vpu_peak
 //   gkr_micro_op       REPS of one u32/i32/f32 op an element       scripts/micro_vpu.py make_bench
 //   gkr_mont_chain     x <- x * b / R, DEPTH times, by variant     scripts/tune_pallas_mul.py build
-//                      (cios32, school, lat)
+//                      (cios32, school, lat, f64, cc)
 //
 // Each launcher enqueues on the given stream, allocates nothing, and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a parameter it has no
@@ -137,9 +137,11 @@ __device__ __forceinline__ Fr fr_mul_school(const Fr& a, const Fr& b) {
   return fr_redc_wide(T);
 }
 
-// VARIANT 0: CIOS (fr_mul, the throughput kernels' product); 1: separated
-// schoolbook; 2: the hash's latency-first product (fr_mul_lat on Fr29
-// limbs: x and b converted once, DEPTH products, x converted back).
+// VARIANT 0: CIOS (fr_mul_cios32); 1: separated schoolbook; 2: the hash's
+// latency-first product (fr_mul_lat on Fr29 limbs: x and b converted once,
+// DEPTH products, x converted back); 3: the FP64 product (fr_mul_f64: b
+// converted to 52-bit limbs once, x each product); 4: CIOS with its carries
+// in the multiply-adds (fr_mul_cc, the throughput kernels' fr_mul).
 // x = a[i]; DEPTH times x = x * b[i] / R; out[i] = x.  BLOCK threads a
 // block, so the register budget follows the block width as a Pallas block
 // would.  At one element the chain is one thread's dependent products: its
@@ -158,9 +160,16 @@ k_mont_chain(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 #pragma unroll
     for (int d = 0; d < DEPTH; ++d) x29 = fr_mul_lat(x29, y29);
     x = fr29_to_fr(x29);
+  } else if constexpr (VARIANT == 3) {
+    const Fr52 y52 = fr52_from_fr(y);
+#pragma unroll
+    for (int d = 0; d < DEPTH; ++d) x = fr_mul_f64(x, y52);
   } else {
 #pragma unroll
-    for (int d = 0; d < DEPTH; ++d) x = VARIANT == 0 ? fr_mul(x, y) : fr_mul_school(x, y);
+    for (int d = 0; d < DEPTH; ++d)
+      x = VARIANT == 0   ? fr_mul_cios32(x, y)
+          : VARIANT == 1 ? fr_mul_school(x, y)
+                         : fr_mul_cc(x, y);
   }
   fr_store(out + 16 * i, x);
 }
@@ -252,6 +261,10 @@ int gkr_mont_chain(const void* a, const void* b, void* out, long long n,
   if (variant == 1 && depth == 9) return launch_chain<1, 9>(a, b, out, n, block, s);
   if (variant == 2 && depth == 1) return launch_chain<2, 1>(a, b, out, n, block, s);
   if (variant == 2 && depth == 9) return launch_chain<2, 9>(a, b, out, n, block, s);
+  if (variant == 3 && depth == 1) return launch_chain<3, 1>(a, b, out, n, block, s);
+  if (variant == 3 && depth == 9) return launch_chain<3, 9>(a, b, out, n, block, s);
+  if (variant == 4 && depth == 1) return launch_chain<4, 1>(a, b, out, n, block, s);
+  if (variant == 4 && depth == 9) return launch_chain<4, 9>(a, b, out, n, block, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -47,6 +47,10 @@ N_MONT = 1 << 20                    # the Montgomery chain's elements
 HASH_DEPTHS = (2, 10)               # the MiMC chain's two depths (bench.py)
 IMAD_PER_SM_CLOCK = 64              # sm_90: 32-bit integer multiply-adds an SM a clock
 FP32_PER_SM_CLOCK = 128             # sm_90: f32 multiplies or FMAs an SM a clock
+FP64_PER_SM_CLOCK = 64              # sm_90: f64 FMAs or adds an SM a clock
+INSTR_PER_SM_CLOCK = 128            # instructions an SM a clock: 4 sub-partitions x 32 lanes
+IMAD_WIDE_PASSES = 1                # IMAD-pipe passes of an IMAD.WIDE (PERF.md section 6)
+IMAD_HI_PASSES = 2                  # of an IMAD.HI: half the IMAD rate, measured
 # Each micro op's peak, operations an SM a clock, for the one instruction a
 # repetition its SASS holds: an IMAD for the integer multiplies (u32_mul16's
 # masks issue beside it on another pipe), one 64-a-clock integer instruction
@@ -237,28 +241,78 @@ def wide_imads(c: Counter) -> int:
     return sum(v for k, v in c.items() if k.startswith("IMAD.WIDE"))
 
 
-def probe_sass() -> dict:
+def hi_imads(c: Counter) -> int:
+    """High halves of 32x32-bit products (IMAD.HI)."""
+    return sum(v for k, v in c.items() if k.startswith("IMAD.HI"))
+
+
+def fp64_ops(c: Counter) -> int:
+    """Instructions of the FP64 pipe: DFMA, DADD, DMUL."""
+    return sum(v for k, v in c.items() if k.startswith(("DFMA", "DADD", "DMUL")))
+
+
+def dfmas(c: Counter) -> int:
+    """Double-precision FMAs (DFMA, DFMA.RZ)."""
+    return sum(v for k, v in c.items() if k.startswith("DFMA"))
+
+
+def product_floor(per: dict) -> float:
+    """A product's floor in IMAD slots (one slot: 1/64 of an SM clock) from
+    its per-product SASS counts: its busiest resource -- the IMAD pipe
+    (64 an SM a clock, IMAD.WIDE and IMAD.HI at their passes), the FP64
+    pipe (64) or instruction issue (INSTR_PER_SM_CLOCK)."""
+    imad_pipe = (per["imad"] + (IMAD_WIDE_PASSES - 1) * per["wide"]
+                 + (IMAD_HI_PASSES - 1) * per["hi"])
+    return max(imad_pipe, per["fp64"] * IMAD_PER_SM_CLOCK / FP64_PER_SM_CLOCK,
+               per["instr"] * IMAD_PER_SM_CLOCK / INSTR_PER_SM_CLOCK)
+
+
+def sass_summary(counts: dict[str, Counter]) -> dict:
     """What the probes' SASS says: IMADs a repetition of the peak chain
-    (8 products expected), a Montgomery product of each variant (IMADs, of
-    them the wide ones, and instructions) and the least IMAD count of them
-    (`imad_per_mont_mul`, what the compute bounds take), and instructions a
-    repetition of each micro op."""
-    counts = sass_counts(K.build())
+    (8 products expected); a Montgomery product of each variant (IMADs
+    without moves, of them IMAD.WIDE and IMAD.HI, DFMAs, FP64-pipe
+    instructions, all instructions, and its floor); instructions a
+    repetition of each micro op.  The compute bounds take one count a
+    product, `price_per_mont_mul`, in IMAD slots: `imad_per_mont_mul`, the
+    least IMAD count of the integer variants, lowered to the floor of a
+    variant on the FP64 pipe (`product_floor`) where that is lower -- a
+    count of IMADs alone would price such a variant near zero."""
     lo, hi = (counts[f"k_u32_mul_chain<{r}>"] for r in K.CHAIN_REPS)
     out = {"peak_imad_per_rep": (imads(hi) - imads(lo))
            / (K.CHAIN_REPS[1] - K.CHAIN_REPS[0])}
     d0, d1 = K.MONT_DEPTHS
     for v, name in enumerate(K.MONT_VARIANTS):
         a, b = (counts[f"k_mont_chain<{v},{d},256>"] for d in (d0, d1))
-        out[f"imad_per_mont_mul_{name}"] = (imads(b) - imads(a)) / (d1 - d0)
-        out[f"wide_per_mont_mul_{name}"] = (wide_imads(b) - wide_imads(a)) / (d1 - d0)
-        out[f"instr_per_mont_mul_{name}"] = (sum(b.values()) - sum(a.values())) / (d1 - d0)
-    out["imad_per_mont_mul"] = min(out[f"imad_per_mont_mul_{v}"] for v in K.MONT_VARIANTS)
+        per = {key: (fn(b) - fn(a)) / (d1 - d0) for key, fn in (
+            ("imad", imads), ("wide", wide_imads), ("hi", hi_imads),
+            ("dfma", dfmas), ("fp64", fp64_ops),
+            ("instr", lambda c: sum(c.values())))}
+        for key, x in per.items():
+            out[f"{key}_per_mont_mul_{name}"] = x
+        out[f"floor_per_mont_mul_{name}"] = product_floor(per)
+    out["imad_per_mont_mul"] = min(out[f"imad_per_mont_mul_{v}"] for v in K.MONT_VARIANTS
+                                   if v not in K.MONT_FP64)
+    out["price_per_mont_mul"] = min([out["imad_per_mont_mul"]]
+                                    + [out[f"floor_per_mont_mul_{v}"] for v in K.MONT_FP64])
     _, r0, r1 = K.MICRO_REPS
     for i, op in enumerate(K.MICRO_OPS):
         a, b = (counts[f"k_micro_op<{i},{r}>"] for r in (r0, r1))
         out[f"instr_per_rep_{op}"] = (sum(b.values()) - sum(a.values())) / (r1 - r0)
     return out
+
+
+def probe_sass() -> dict:
+    """`sass_summary` of the built library."""
+    return sass_summary(sass_counts(K.build()))
+
+
+def check_bound(what: str, ms: float, bound_ms: float) -> None:
+    """A kernel's reading against its bound: faster than CEILING x the
+    bound's rate means the bound is wrong (it counted work the card did not
+    do, or priced it above the card's peak)."""
+    if bound_ms > CEILING * ms:
+        raise RuntimeError(f"{what}: {ms:.4f} ms read, below its bound of "
+                           f"{bound_ms:.4f} ms / {CEILING}: the bound is wrong")
 
 
 # ------------------------------------------------------------------ probes

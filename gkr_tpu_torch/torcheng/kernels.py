@@ -15,10 +15,14 @@ sources.  Importing this module needs neither `nvcc` nor a card.
 
 Bounds below are for one H100 SXM (3.35 TB/s; 132 SMs x 64 32-bit IMAD per
 clock) at the layer engines' shapes, n = 2^20 entries, 64 B an element.
-A Montgomery product is taken at the least IMAD count of the variants'
-SASS, moves left out (`probes.probe_sass`, as `chip_smoke.py` prints it:
-232.125 for the 8 x 32-bit CIOS `fr_mul`, 170.875 for the hash's
-`fr_mul_lat`).
+A Montgomery product is priced at the least IMAD count of the integer
+variants' SASS, moves left out, lowered to the FP64 variant's floor where
+that is lower (`probes.sass_summary`, as `chip_smoke.py` prints it): 151.625,
+the count of `fr_mul` (cc: CIOS with its carries in PTX multiply-adds, 317
+instructions a product), against 232.125 for the 8 x 32-bit CIOS
+`fr_mul_cios32` and 170.875 for the hash's `fr_mul_lat`; the FP64
+product `fr_mul_f64` issues 30 IMADs and 159.5 FP64 instructions, 393 in
+all, a floor of 196.5 slots.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ LAUNCHES = {"mont_mul": 0, "fold": 0, "phase1_eval": 0, "phase2_eval": 0,
             "phase1_partials": 0, "phase2_partials": 0, "round_tail": 0,
             "mimc_multi": 0, "eq_table": 0, "seg_sum": 0, "normalize": 0,
             "normalize_mul": 0, "stack": 0, "u32_mul_chain": 0, "micro_op": 0,
-            "mont_chain_cios32": 0, "mont_chain_school": 0, "mont_chain_lat": 0}
+            "mont_chain_cios32": 0, "mont_chain_school": 0, "mont_chain_lat": 0,
+            "mont_chain_f64": 0, "mont_chain_cc": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -260,10 +265,11 @@ def fold(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 # round sums, and pl_phase1_eval / pl_phase2_eval (:318, :368), the
 # per-round engine's round sums, with one kernel template (csrc k_eval<4>,
 # k_eval<3>).  Bounds at n = 2^20: phase 1 reads 268 MB = 80 us, against
-# 3 * 2^19 products = 3.6e8 IMAD = 22 us; phase 2 reads 201 MB = 60 us,
-# against 3 * 2^19 products (and 3 a block by wb) = 22 us.  Both bind on
-# bytes, but a product takes ~2x its IMAD count in issue even at full
-# occupancy, so the products must run under the loads on enough warps.
+# 3 * 2^19 products = 2.4e8 IMAD slots = 14 us; phase 2 reads 201 MB =
+# 60 us, against 3 * 2^19 products (and 3 a block by wb) = 14 us.  Both
+# bind on bytes, but a product takes 1.6x (`fr_mul`, cc) to 1.8x (cios32)
+# its IMAD count's time even at full occupancy, so the products must run
+# under the loads on enough warps.
 # The design: tile k is entries [k TILE, (k+1) TILE) of lo and of hi, two
 # contiguous byte ranges; a persistent grid of one block an SM (G <= 132)
 # walks the tiles k = b, b + G, ...; a three-stage ring in shared memory
@@ -423,8 +429,10 @@ def _eval_attrs(lib, tables: int) -> dict:
 # entry b is the value of its row b >> EQ_BITS (the upper tables' product)
 # times the last table's entry b & 31, one product an entry (csrc/kernels.cu
 # k_eq_table).  Bound at k = 20: the table written once (67 MB = 20 us)
-# against 2^20 products = 1.8e8 IMAD = 11 us: bytes bind.  z stays on the
-# card (for phase 2 it is b*, the device challenges).
+# against 2^20 products = 1.6e8 IMAD slots = 10 us: bytes bind.  With the
+# FP64 product (`fr_mul_f64`) the stores bound the kernel, so each warp
+# stages its 2 KB row in shared memory and writes it as four 512-byte
+# runs.  z stays on the card (for phase 2 it is b*, the device challenges).
 
 EQ_BITS = 5                  # variables of a factor table (csrc EQ_BITS)
 EQ_MAX_K = 32                # variables a table takes at most (csrc EQ_MAX_K)
@@ -706,7 +714,8 @@ CHAIN_REPS = (16, 128)           # the peak probe's two depths (bench.py)
 MICRO_OPS = ("u32_add", "u32_mul", "u32_mul16", "u32_shift", "i32_mul",
              "f32_mul", "f32_fma")
 MICRO_REPS = (16, 1040, 4112)     # scripts/micro_vpu.py's REPS; two deep runs
-MONT_VARIANTS = ("cios32", "school", "lat")
+MONT_VARIANTS = ("cios32", "school", "lat", "f64", "cc")
+MONT_FP64 = ("f64",)             # variants whose products run on the FP64 pipe
 MONT_DEPTHS = (1, 9)             # scripts/tune_pallas_mul.py's lo and hi depth
 MONT_BLOCKS = (128, 256, 512, 1024)
 
@@ -827,15 +836,20 @@ def micro_op(op: str, a: torch.Tensor, b: torch.Tensor, reps: int = 16) -> torch
 # -------------------------------------------------------- Montgomery chain
 # Replaces scripts/tune_pallas_mul.py `build` (:92, pallas_call :97) with
 # the kernels of `make_kernel` (:78): x = x * b / R, `depth` times, per
-# element.  Three variants of the port's own product, chosen for this card:
-# "cios32", `fr_mul` (fr.cuh), the throughput kernels' one; "school", the
-# full 8 x 8 word product and then `fr_redc_wide`; "lat", `fr_mul_lat`, the
-# hash's product on 29-bit limbs (x and b converted once, the chain in
-# that form, x converted back).  Block widths 128 to 1024 threads are
+# element.  Five variants of the port's own product, chosen for this card
+# (fr.cuh): "cios32", `fr_mul_cios32`, 8 x 32-bit CIOS with 64-bit carry
+# sums; "school", the full 8 x 8 word product and then `fr_redc_wide`;
+# "lat", `fr_mul_lat`, the hash's product on 29-bit limbs (x and b
+# converted once, the chain in that form, x converted back); "f64",
+# `fr_mul_f64`, the product on the FP64 pipe (52-bit limbs as doubles,
+# exact FMA splits, 64-bit integer columns; b converted once), which the
+# throughput kernels take as `fr_mul`; "cc", CIOS with its carries in PTX
+# multiply-add chains.  Block widths 128 to 1024 threads are
 # template instantiations (`__launch_bounds__` sets the register budget as
 # a Pallas block width would).  Bound at 2^20 elements: 201 MB = 60 us,
-# against depth * 2^20 * 171 IMAD at 16.7 T/s = depth * 10.7 us: bytes bind
-# at depth 1, operations at depth 9.  The probe's marginal time between
+# against depth * 2^20 * 151.625 IMAD slots at 16.7 T/s = depth * 9.5 us:
+# bytes bind at depth 1, operations at depth 9 (the f64 variant at its own
+# floor, 196.5 slots a product).  The probe's marginal time between
 # depths 1 and 9 is the product's cost without the memory traffic; at one
 # element (one thread) it is the latency of a dependent product.
 
@@ -849,8 +863,8 @@ def mont_chain_plain(a: torch.Tensor, b: torch.Tensor, depth: int) -> torch.Tens
 def mont_chain(a: torch.Tensor, b: torch.Tensor, depth: int,
                variant: str = "cios32", block: int = THREADS) -> torch.Tensor:
     """x = a, then `depth` times x = x * b / R mod p, elementwise over
-    (n, 16) canonical limbs; depth 1 or 9, variant "cios32", "school" or
-    "lat", block 128 to 1024 threads."""
+    (n, 16) canonical limbs; depth 1 or 9, variant one of MONT_VARIANTS,
+    block 128 to 1024 threads."""
     dev = _check_limbs(a, b)
     if (a.shape != b.shape or variant not in MONT_VARIANTS
             or depth not in MONT_DEPTHS or block not in MONT_BLOCKS):

@@ -12,6 +12,7 @@ once a step, so chip_smoke.py compares it with a relative tolerance)."""
 
 import inspect
 import random
+from collections import Counter
 import runpy
 import sys
 import textwrap
@@ -189,7 +190,8 @@ def test_mont_chain_plain_matches_host_ints():
         got = L.unpack(K.mont_chain_plain(a, b, depth), montgomery=False)
         assert got == [x * pow(y * r_inv, depth, P) % P for x, y in zip(xs, ys)]
     K.reset_launches()
-    assert torch.equal(K.mont_chain(a, b, 9, "school", 1024), K.mont_chain_plain(a, b, 9))
+    for variant in K.MONT_VARIANTS:
+        assert torch.equal(K.mont_chain(a, b, 9, variant, 1024), K.mont_chain_plain(a, b, 9))
     assert not any(K.LAUNCHES.values())
 
 
@@ -212,6 +214,15 @@ def test_probe_wrappers_refuse_what_their_kernels_do_not_take():
         K.mont_chain(limbs, limbs, 1, "karatsuba")
     with pytest.raises(ValueError):
         K.mont_chain(limbs, limbs, 1, block=96)
+    for variant in ("f64", "cc"):
+        with pytest.raises(ValueError):
+            K.mont_chain(limbs, limbs, 2, variant)
+        with pytest.raises(ValueError):
+            K.mont_chain(limbs, limbs, 9, variant, 64)
+        with pytest.raises(ValueError):
+            K.mont_chain(limbs[:3], limbs, 1, variant)
+    with pytest.raises(ValueError):
+        K.mont_chain(limbs, limbs, 1, "f32")
 
 
 def test_demangled_probe_names():
@@ -223,12 +234,91 @@ def test_demangled_probe_names():
 
 
 def test_sass_imads_leave_out_moves():
-    from collections import Counter
-
     c = Counter({"IMAD.WIDE.U32": 5, "IMAD.HI.U32": 2, "IMAD": 3, "IMAD.X": 1,
                  "IMAD.MOV.U32": 7, "IMAD.MOV": 2, "IADD3": 9, "LOP3.LUT": 4})
     assert probes.imads(c) == 11
     assert probes.wide_imads(c) == 5
+
+
+def test_sass_counts_the_fp64_pipe_and_the_high_halves():
+    c = Counter({"IMAD.WIDE.U32.X": 4, "IMAD.WIDE.U32": 1, "IMAD.HI.U32": 3,
+                 "IMAD.HI": 1, "DFMA": 6, "DFMA.RZ": 5, "DADD": 7, "DMUL": 2,
+                 "DSETP.GT.AND": 1, "IADD3": 9, "FFMA": 4})
+    assert probes.wide_imads(c) == 5
+    assert probes.hi_imads(c) == 4
+    assert probes.dfmas(c) == 11
+    assert probes.fp64_ops(c) == 20
+    assert probes.imads(c) == 9
+
+
+def synthetic_sass(per_variant: dict[str, Counter]) -> dict[str, Counter]:
+    """The opcode counts sass_summary reads, with each Montgomery variant's
+    product given: depth 1 holds the set-up and one product, depth 9 the
+    same and eight more."""
+    setup = Counter({"LDG.E.128": 8, "STG.E.128": 4, "IMAD.MOV.U32": 3, "EXIT": 1})
+    counts = {"k_u32_mul_chain<16>": Counter({"IMAD": 16 * K.CHAINS, "IADD3": 8}),
+              "k_u32_mul_chain<128>": Counter({"IMAD": 128 * K.CHAINS, "IADD3": 8})}
+    d0, d1 = K.MONT_DEPTHS
+    for v, name in enumerate(K.MONT_VARIANTS):
+        for d in (d0, d1):
+            c = Counter(setup)
+            for op, x in per_variant[name].items():
+                c[op] += d * x
+            counts[f"k_mont_chain<{v},{d},256>"] = c
+    for i in range(len(K.MICRO_OPS)):
+        for r in K.MICRO_REPS:
+            counts[f"k_micro_op<{i},{r}>"] = Counter({"IMAD": r, "EXIT": 1})
+    return counts
+
+
+def integer_product(imad: int, wide: int, hi: int, alu: int) -> Counter:
+    return Counter({"IMAD": imad - wide - hi, "IMAD.WIDE.U32": wide,
+                    "IMAD.HI.U32": hi, "IADD3": alu, "IMAD.MOV.U32": 5})
+
+
+@pytest.mark.parametrize("dfma, dadd, f64_instr, lowered",
+                         [(99, 60, 393, False), (80, 50, 260, True)])
+def test_one_price_a_product_over_the_integer_variants(dfma, dadd, f64_instr, lowered):
+    """imad_per_mont_mul is the least IMAD count of the integer variants
+    (an FP64 variant's few IMADs do not count); the FP64 variant's floor is
+    its busiest resource, max(IMAD slots, FP64 ops, instructions / 2); the
+    shared price is lowered to that floor only where it is below."""
+    fp64 = Counter({"IMAD": 25, "IMAD.WIDE.U32": 5, "DFMA": dfma - 40, "DFMA.RZ": 40,
+                    "DADD": dadd, "IADD3": f64_instr - 30 - dfma - dadd})
+    per = {"cios32": integer_product(232, 120, 8, 351),
+           "school": integer_product(246, 120, 8, 368),
+           "lat": integer_product(171, 162, 0, 242),
+           "f64": fp64,
+           "cc": integer_product(152, 119, 9, 165)}
+    out = probes.sass_summary(synthetic_sass(per))
+    assert out["peak_imad_per_rep"] == K.CHAINS
+    assert out["imad_per_mont_mul_f64"] == 30
+    assert out["wide_per_mont_mul_cc"] == 119 and out["hi_per_mont_mul_cc"] == 9
+    assert out["dfma_per_mont_mul_f64"] == dfma
+    assert out["fp64_per_mont_mul_f64"] == dfma + dadd
+    assert out["instr_per_mont_mul_f64"] == f64_instr
+    assert out["instr_per_mont_mul_cios32"] == 232 + 351 + 5
+    assert out["imad_per_mont_mul"] == 152              # cc's, not f64's 30
+    hi_extra = probes.IMAD_HI_PASSES - 1
+    wide_extra = probes.IMAD_WIDE_PASSES - 1
+    assert out["floor_per_mont_mul_cc"] == max(152 + 119 * wide_extra + 9 * hi_extra,
+                                               (152 + 165 + 5) / 2)
+    floor = max(30 + 5 * wide_extra, dfma + dadd, f64_instr / 2)
+    assert out["floor_per_mont_mul_f64"] == floor
+    assert out["price_per_mont_mul"] == (floor if lowered else 152)
+    assert (out["price_per_mont_mul"] < out["imad_per_mont_mul"]) == lowered
+
+
+def test_a_reading_faster_than_its_bound_raises():
+    """chip_smoke.record's check: a kernel may not read faster than CEILING
+    x its bound's rate."""
+    probes.check_bound("eq_table", 0.0346, 0.0200)
+    probes.check_bound("mont_chain_cc", 0.1, 0.1 * probes.CEILING)
+    with pytest.raises(RuntimeError, match="the bound is wrong"):
+        probes.check_bound("mont_chain_cc", 0.1, 0.1 * probes.CEILING * 1.001)
+    import chip_smoke
+
+    assert "check_bound(name, ms, b_ms)" in inspect.getsource(chip_smoke.phase_kernels)
 
 
 def test_rate_above_the_ceiling_raises():

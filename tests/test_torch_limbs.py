@@ -281,7 +281,7 @@ def test_wrappers_take_plain_versions_on_cpu():
         "mont_mul", "fold", "phase1_eval", "phase2_eval", "phase1_partials",
         "phase2_partials", "round_tail", "mimc_multi", "eq_table",
         "seg_sum", "normalize", "normalize_mul", "stack", "u32_mul_chain",
-        "micro_op", "mont_chain_cios32", "mont_chain_school", "mont_chain_lat"}
+        "micro_op", *(f"mont_chain_{v}" for v in K.MONT_VARIANTS)}
     assert not any(K.LAUNCHES.values())
     assert K._lib is None
     with pytest.raises(ValueError):
