@@ -55,6 +55,24 @@ Phases, each fatal on failure:
      value > 0 and 0 < sol_vs_chip <= 1.05;
   9. the probe commands `micro` and `tune` (gkr_tpu_torch.probes; tune
      times every variant at every block width);
+ 10. the CLI flow on the card, in process through gkr_tpu_torch.cli.main:
+     prove-native --example square --weak-gadget over 3 inputs --backend
+     torch --export, prove-r1cs --workers 1, verify (every subcircuit OK,
+     exit 0), each command's launches (prove-native's include round_tail
+     and mimc_multi, through prove_pipelined; prove-r1cs's subcircuits are
+     all at or under the host threshold, so it launches none); one field
+     element flipped makes verify print FAIL and exit 1; the weak native
+     aggregation's proofs on the card byte-equal to the host engine's;
+ 11. the full-strength native aggregation (`prove-native --example mimc
+     --backend torch --export agg` over examples/mimc/input1, input2):
+     each round's stages (gadget build, compile, prove, self-verify, host
+     clock with a synchronize) and launches; round 1 (140,891 constraints,
+     one 17-layer circuit of 4,718,592 gates) proved through
+     prove_pipelined with every kernel of the fused path launched, its
+     proof byte-equal to the fused prove() of the circuit recompiled from
+     the export, its device time by kernel (torch.profiler); then
+     prove-r1cs of the export with 4 threads and with 1 on the card (equal
+     bytes) and verify of every subcircuit;
 then one JSON line of every kernel with its launches, time and bound.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it.  Imports nothing of jax or gkr_tpu.
@@ -62,10 +80,13 @@ before it.  Imports nothing of jax or gkr_tpu.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -333,7 +354,9 @@ def one_launch(K, name, fn):
 def only_eval_kernels(name, fn, calls=5, tries=3):
     """torch.profiler over warm calls of fn: their device kernels must be the
     eval kernel alone, once a call (no plain-torch pass after it).  A
-    profile that recorded no device activity at all is taken again."""
+    profile that dropped records -- no device activity at all, or one
+    kernel seen fewer times than the calls (one H100 run recorded 4 of 5)
+    -- is taken again; any other kernel fails at once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -346,7 +369,8 @@ def only_eval_kernels(name, fn, calls=5, tries=3):
             torch.cuda.synchronize()
         kernels = {e.key: e.count for e in prof.key_averages()
                    if getattr(e, "device_type", None) == DeviceType.CUDA}
-        if kernels:
+        if (len(kernels) > 1 or (kernels and "k_eval" not in next(iter(kernels)))
+                or (kernels and next(iter(kernels.values())) >= calls)):
             break
     print(f"    {name}: device kernels of {calls} calls (torch.profiler): {kernels}",
           flush=True)
@@ -1000,6 +1024,215 @@ def phase_probe_paths(K, probes):
     return launches
 
 
+def run_cli(cli, argv: list[str]) -> tuple[int, str]:
+    """`python -m gkr_tpu_torch <argv>` in process: its exit code and what it
+    printed (also printed here, indented)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    lines = out.splitlines()
+    for line in lines[:4]:
+        print(f"    | {line}", flush=True)
+    if len(lines) > 4:
+        print(f"    | ... ({len(lines) - 4} more lines)", flush=True)
+    return rc, out
+
+
+def check_verify_output(rc: int, out: str, n_proofs: int | None = None) -> int:
+    """`verify` exited 0 and printed OK for every subcircuit."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("subcircuit ")]
+    if rc != 0 or not lines or any(not ln.endswith(": OK") for ln in lines):
+        raise AssertionError(f"verify: rc {rc}, {out[-400:]}")
+    if n_proofs is not None and len(lines) != n_proofs:
+        raise AssertionError(f"verify checked {len(lines)} of {n_proofs} proofs")
+    return len(lines)
+
+
+def flipped_verify(cli, P, proof_path: str, r1cs: str, wtns: str) -> None:
+    """One field element of proofs.json flipped: `verify` prints FAIL and
+    exits 1."""
+    with open(proof_path) as f:
+        data = json.load(f)
+    rnd = data["proofs"][0]["sumcheckProof"][0][0]
+    rnd[0] = str((int(rnd[0]) + 1) % P)
+    bad = proof_path.replace(".json", "_flipped.json")
+    with open(bad, "w") as f:
+        json.dump(data, f)
+    rc, out = run_cli(cli, ["verify", "--proof", bad, "--r1cs", r1cs, "--wtns", wtns])
+    if rc != 1 or "subcircuit 0: FAIL" not in out:
+        raise AssertionError(f"a flipped element: verify rc {rc}, {out[-400:]}")
+    print("  one field element flipped in proofs.json: verify prints FAIL for "
+          "subcircuit 0 and exits 1", flush=True)
+
+
+def launched(K) -> dict[str, int]:
+    return {k: v for k, v in K.LAUNCHES.items() if v}
+
+
+def phase_cli_flow(K, P, tmp: str) -> None:
+    """The verify skill's weak CLI flow with --backend torch, in process, the
+    launch counters reset before each command and read after it; then the
+    card's native aggregation against the host engine's."""
+    from gkr_tpu_torch import HostBackend, TorchBackend, cli
+    from gkr_tpu_torch.examples import square_chain_example
+    from gkr_tpu_torch.frontend import R1csFile, WtnsFile, compile_r1cs_to_gkr
+    from gkr_tpu_torch.recursion.native import prove_all_native
+
+    values = [{"in1": v} for v in (3, 5, 7)]
+    paths = []
+    for i, v in enumerate(values, 1):
+        paths.append(os.path.join(tmp, f"i{i}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(v, f)
+    agg, proofs = os.path.join(tmp, "aggregated"), os.path.join(tmp, "proofs.json")
+    r1cs, wtns = agg + ".r1cs", agg + ".wtns"
+    steps = (("prove-native", ["prove-native", "--example", "square", "--weak-gadget",
+                               "-i", *paths, "--backend", "torch", "--export", agg]),
+             ("prove-r1cs", ["prove-r1cs", "--r1cs", r1cs, "--wtns", wtns,
+                             "--backend", "torch", "--workers", "1", "-o", proofs]),
+             ("verify", ["verify", "--proof", proofs, "--r1cs", r1cs, "--wtns", wtns]))
+    counts = {}
+    for label, argv in steps:
+        print(f"  python -m gkr_tpu_torch {' '.join(argv)}", flush=True)
+        K.reset_launches()
+        (rc, out), dt = sync_time(lambda: run_cli(cli, argv))
+        counts[label] = launched(K)
+        print(f"  {label}: exit {rc}, {dt:.3f} s; launches {counts[label]}", flush=True)
+        if rc != 0:
+            raise AssertionError(f"{label} exited {rc}")
+        if label == "verify":
+            n = check_verify_output(rc, out)
+            print(f"  verify: all {n} subcircuits OK", flush=True)
+    missing = [k for k in ("round_tail", "mimc_multi") if not counts["prove-native"].get(k)]
+    if missing:
+        raise AssertionError(f"prove-native launched no {missing}: not through "
+                             "prove_pipelined")
+    circuits, _, _ = compile_r1cs_to_gkr(R1csFile.read(r1cs), WtnsFile.read(wtns))
+    max_k = max(l.k_next for c in circuits for l in c.layers)
+    if counts["prove-r1cs"] or max_k > TorchBackend().host_threshold:
+        raise AssertionError(f"prove-r1cs: launches {counts['prove-r1cs']}, max k {max_k}")
+    print(f"  prove-r1cs here reaches no kernel: its {len(circuits)} subcircuits "
+          f"have k <= {max_k}, at or under host_threshold, so the host engine "
+          f"proves every layer", flush=True)
+    flipped_verify(cli, P, proofs, r1cs, wtns)
+
+    def native(backend):
+        return prove_all_native(square_chain_example, values, backend=backend,
+                                full_fs=False, recombination=False)
+
+    card, dt_card = sync_time(lambda: native(TorchBackend()))
+    host, dt_host = sync_time(lambda: native(HostBackend()))
+    if [json.dumps(p.to_dict()) for p in card] != [json.dumps(p.to_dict()) for p in host]:
+        raise AssertionError("prove_all_native on the card differs from the host engine")
+    print(f"  prove_all_native(square, 3 inputs, weak): the card's {len(card)} "
+          f"proof(s) byte-equal to the host engine's ({dt_card:.3f} s against "
+          f"{dt_host:.3f} s, host clock)", flush=True)
+
+
+ON_AGGREGATION_PATH = ("mont_mul", "fold", "phase1_partials", "phase2_partials",
+                       "round_tail", "normalize", "normalize_mul", "eq_table",
+                       "seg_sum", "mimc_multi", "stack")
+ROUND1 = {"constraints": 140891, "layers": 17, "gates": 4718592}   # gkr_tpu's round 1
+
+
+def phase_aggregation(K, tmp: str):
+    """Round 1 of the full-strength mimc aggregation, as `prove-native
+    --example mimc --backend torch --export agg` drives it over
+    examples/mimc/input1.json and input2.json (`prove_round_native`'s
+    stages, each timed by `bench.aggregation_round`; the export as
+    `prove_all_native` writes it); its proof against the fused prove() of
+    the same circuit; then prove-r1cs of the export with 4 and 1 threads on
+    the card, and verify."""
+    from gkr_tpu_torch import TorchBackend, cli, prove, prove_pipelined
+    from gkr_tpu_torch.bench import STAGES, aggregation_round
+    from gkr_tpu_torch.examples import mimc_example
+    from gkr_tpu_torch.frontend import R1csFile, WtnsFile, compile_r1cs_to_gkr
+    from gkr_tpu_torch.recursion.native import export_native
+
+    agg = os.path.join(tmp, "agg")
+    backend, pairs, rounds = TorchBackend(), None, []
+    t0 = time.perf_counter()
+    for i in (1, 2):
+        with open(os.path.join("examples", "mimc", f"input{i}.json")) as f:
+            user_input = json.load(f)
+        pairs, builder, st = aggregation_round(mimc_example, user_input, pairs, backend)
+        rounds.append(st)
+    export_native(agg, builder)
+    torch.cuda.synchronize()
+    proofs = [p for p, _ in pairs]
+    print(f"  prove-native's rounds (mimc, input1, input2, TorchBackend(), full-strength "
+          f"defaults) and the export: {time.perf_counter() - t0:.3f} s, "
+          f"{len(proofs)} proof(s)", flush=True)
+    for i, st in enumerate(rounds):
+        print(f"    round {i}: {st['constraints']} constraints; "
+              + ", ".join(f"{k} {st[k]:.3f} s" for k in (*STAGES, "total")),
+              flush=True)
+        print(f"      launches: {st['launches']}", flush=True)
+    round1 = rounds[1]
+    if round1["launches"].get("mimc_multi", 0) <= 0:     # r*: prove_pipelined only
+        raise AssertionError(f"round 1 did not go through prove_pipelined: "
+                             f"{round1['launches']}")
+    missing = [k for k in ON_AGGREGATION_PATH if not round1["launches"].get(k)]
+    if missing or any(round1["launches"].get(k) for k in ("phase1_eval", "phase2_eval")):
+        raise AssertionError(f"round 1's launches: missing {missing}, "
+                             f"{round1['launches']}")
+
+    t0 = time.perf_counter()
+    circuits, ws, _ = compile_r1cs_to_gkr(R1csFile.read(agg + ".r1cs"),
+                                          WtnsFile.read(agg + ".wtns"), width_limit=1)
+    t_compile = time.perf_counter() - t0
+    circuit, w = circuits[0], ws[0]
+    shape = {"constraints": round1["constraints"], "layers": circuit.depth(),
+             "gates": sum(l.n_gates() for l in circuit.layers)}
+    print(f"  round 1 recompiled from agg.r1cs / agg.wtns at width_limit 1 in "
+          f"{t_compile:.3f} s: {shape}, k = {circuit.k_list()}", flush=True)
+    if len(circuits) != 1 or shape != ROUND1:
+        raise AssertionError(f"round 1 is {len(circuits)} circuit(s) of {shape}, "
+                             f"gkr_tpu's is {ROUND1}")
+    backend = TorchBackend()
+    fused, dt_fused = sync_time(lambda: prove(circuit, w, backend=backend))
+    if json.dumps(fused.to_dict()) != json.dumps(proofs[0].to_dict()):
+        raise AssertionError("round 1: prove_pipelined's proof differs from prove()'s")
+    print(f"  round 1's proof (prove_pipelined, self-verified by the port's "
+          f"verifier) byte-equal to prove(circuit, w, TorchBackend()), the fused "
+          f"engine without the pipelined walk ({dt_fused:.3f} s, plans built)",
+          flush=True)
+    _, dt_pipe = sync_time(lambda: prove_pipelined(circuit, w, backend=backend))
+    print(f"  prove_pipelined again, plans cached: {dt_pipe:.3f} s", flush=True)
+    print("  where round 1's pipelined prove's device time goes (torch.profiler):",
+          flush=True)
+    phase_profile(prove_pipelined, lambda: backend, circuit, w, dt_pipe)
+    del circuits, ws, circuit, w, fused, backend
+
+    out = {}
+    for workers in (4, 1):
+        path = os.path.join(tmp, f"proofs_w{workers}.json")
+        argv = ["prove-r1cs", "--r1cs", agg + ".r1cs", "--wtns", agg + ".wtns",
+                "--backend", "torch", "--workers", str(workers), "-o", path]
+        K.reset_launches()
+        (rc, _), dt = sync_time(lambda: run_cli(cli, argv))
+        counts = launched(K)
+        print(f"  prove-r1cs --workers {workers}: exit {rc}, {dt:.3f} s; launches "
+              f"{counts}{' (threads share the counters)' if workers > 1 else ''}",
+              flush=True)
+        if rc != 0 or not counts.get("round_tail"):
+            raise AssertionError(f"prove-r1cs --workers {workers}: rc {rc}, {counts}")
+        with open(path, "rb") as f:
+            out[workers] = f.read()
+    if out[4] != out[1]:
+        raise AssertionError("prove-r1cs: --workers 4 and --workers 1 differ")
+    n = len(json.loads(out[1])["proofs"])
+    print(f"  --workers 4 and --workers 1 wrote the same bytes ({n} subcircuit proofs)",
+          flush=True)
+    (rc, text), dt = sync_time(lambda: run_cli(cli, [
+        "verify", "--proof", os.path.join(tmp, "proofs_w4.json"),
+        "--r1cs", agg + ".r1cs", "--wtns", agg + ".wtns"]))
+    check_verify_output(rc, text, n)
+    print(f"  verify: all {n} subcircuits OK ({dt:.3f} s)", flush=True)
+    return round1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1128,6 +1361,16 @@ def main() -> int:
     print("[9] the probe commands: python -m gkr_tpu_torch.probes micro, tune",
           flush=True)
     from_probes.update(phase_probe_paths(K, probes))
+
+    with tempfile.TemporaryDirectory(prefix="gkr_cli_") as tmp:
+        print("[10] the CLI flow on the card: python -m gkr_tpu_torch prove-native "
+              "(square, weak gadget, 3 inputs), prove-r1cs, verify", flush=True)
+        phase_cli_flow(K, P, tmp)
+    with tempfile.TemporaryDirectory(prefix="gkr_agg_") as tmp:
+        print("[11] the full-strength aggregation: prove-native --example mimc "
+              "--backend torch --export agg over examples/mimc/input1, input2; "
+              "prove-r1cs and verify of the export", flush=True)
+        phase_aggregation(K, tmp)
 
     for row in rows:
         src = (per_round if row["name"] in LAUNCHES_FROM_PER_ROUND

@@ -3,7 +3,9 @@
 
     python -m gkr_tpu_torch.bench                      # one JSON line
     GKR_BENCH_EXTRA=1 python -m gkr_tpu_torch.bench    # + a 2^16 layer, the
-                                                       #   full prove, a 2^24 layer
+                                                       #   full prove, a 2^24
+                                                       #   layer, the native
+                                                       #   aggregation
 
 It proves the same layer and circuit as `bench.py` (the same generators and
 seeds) and prints ONE JSON line with `bench.py`'s field names:
@@ -34,6 +36,11 @@ seeds) and prints ONE JSON line with `bench.py`'s field names:
                            memory rate is not on record, with the reason
   breakdown_ms             the two builds and the rest (rounds and hashes)
   sync_rtt_ms              one tiny kernel and a synchronize
+  extra.aggregation_e2e    (GKR_BENCH_EXTRA=1) the full-strength native
+                           aggregation of examples/mimc/input{1,2,3}.json:
+                           total_s, round_s, constraints as bench.py's, and
+                           stage_s (`run_aggregation`; each stage's line on
+                           stderr as it ends)
 
 Every time is on the card, ending in `torch.cuda.synchronize()`.  Failures
 propagate: a failed check raises, and a sol_vs_chip above 1.05 (a time below
@@ -47,16 +54,20 @@ import json
 import os
 import random
 import subprocess
+import sys
 import time
+from pathlib import Path
 
 import torch
 
 from . import probes
 from .circuit import GateLayer, GKRCircuit
+from .examples import mimc_example
 from .field import P
 from .mimc import Mimc7
 from .mle import MleStruct
 from .prover import prove
+from .recursion import aggregator, native
 from .sumcheck import prove_layer_sumcheck, round_poly_len
 from .torcheng import fused as F
 from .torcheng import kernels as K
@@ -77,6 +88,10 @@ TOP_K = 24                       # extra's largest layer
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def _stderr(line: str) -> None:
+    print(line, file=sys.stderr, flush=True)
 
 
 def _seconds(fn, device) -> float:
@@ -307,6 +322,80 @@ def run_full_prove(k: int, k_input: int = 16, device="cuda"):
     return gates, dt, dict(backend.t), verify_s, pipe_s
 
 
+STAGES = ("gadget build", "compile", "prove", "self-verify")
+
+
+def aggregation_round(user_fn, user_input: dict, previous=None, backend=None,
+                      device=None, log=None):
+    """`native.prove_round_native` with its defaults, stage by stage:
+    `build_round_native`, `compile_round_native` (width 1),
+    `prove_subcircuits` without its self-verify, then the port's verifier
+    on each proof, each stage ending in a device synchronize.  Returns
+    (the round's (proof, circuit) pairs, its builder, a dict of each
+    stage's host-clock seconds, `total`, `constraints` and the kernel
+    launches of the round).  Launch counts are exact only when nothing
+    else launches meanwhile.  `log` gets one line as each stage ends, so a
+    run cut short says how far it got."""
+    dev = torch.device("cuda" if device is None else device)
+    log = log or (lambda line: None)
+    st = {}
+
+    def stage(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        _sync(dev)
+        st[name] = time.perf_counter() - t0
+        log(f"  {name}: {st[name]:.3f} s")
+        return out
+
+    K.reset_launches()
+    b = stage("gadget build", native.build_round_native, user_fn, user_input,
+              previous)
+    circuits, ws = stage("compile", native.compile_round_native, b)
+    proofs = stage("prove", aggregator.prove_subcircuits, circuits, ws,
+                   backend=backend, check_verify=False)
+    good = stage("self-verify", lambda: all(verify(p, c) for p, c in
+                                            zip(proofs, circuits)))
+    if not good:
+        raise RuntimeError("aggregation round: self-verification failed")
+    st.update(total=sum(st[k] for k in STAGES), constraints=len(b.constraints),
+              launches={k: v for k, v in K.LAUNCHES.items() if v})
+    return list(zip(proofs, circuits)), b, st
+
+
+def run_aggregation(n_inputs: int = 3, device=None, log=None) -> dict:
+    """Native aggregation end to end, bench.py's `aggregation_e2e` cell: the
+    committed mimc inputs (examples/mimc/input*.json), full-strength
+    defaults (full_fs + recombination + each round's self-verify), one
+    TorchBackend (`device=None`: the card).  Round i's constraint count
+    includes the in-circuit verifier gadget for round i-1's proof;
+    `stage_s` splits each round by `aggregation_round`, which passes `log`
+    a line as each stage ends.  Host clock; a failure propagates."""
+    root = Path(__file__).resolve().parent.parent / "examples" / "mimc"
+    inputs = []
+    for i in range(1, n_inputs + 1):
+        with open(root / f"input{i}.json") as f:
+            inputs.append({k: int(v) for k, v in json.load(f).items()})
+    log = log or (lambda line: None)
+    backend = TorchBackend(device=device)
+    pairs, rounds = None, []
+    t_all = time.perf_counter()
+    for i, ui in enumerate(inputs):
+        log(f"round {i}: started")
+        pairs, _, st = aggregation_round(mimc_example, ui, pairs, backend,
+                                         device, log)
+        rounds.append(st)
+        log(f"round {i}: {st['total']:.3f} s, {st['constraints']} constraints")
+    return {
+        "config": (f"native mimc aggregation, {n_inputs} inputs, full_fs "
+                   "+ recombination + self-verify, TorchBackend"),
+        "total_s": round(time.perf_counter() - t_all, 2),
+        "round_s": [round(st["total"], 3) for st in rounds],
+        "constraints": [st["constraints"] for st in rounds],
+        "stage_s": [{k: round(st[k], 3) for k in STAGES} for st in rounds],
+    }
+
+
 def sync_rtt_s() -> float:
     """One tiny kernel and a synchronize, best of 5."""
     x = torch.zeros(16, dtype=torch.int32, device="cuda")
@@ -431,6 +520,9 @@ def main() -> dict:
         dt_top, _, _ = run_device(TOP_K, breakdown=False)
         extra[f"layer_2e{TOP_K}"] = {"gates_per_sec": round((1 << TOP_K) / dt_top, 1),
                                      "layer_ms": round(dt_top * 1e3, 2)}
+        # last: its third round's pure-Python gadget build has not finished
+        # in 30 minutes on the H100's host (PERF.md §5)
+        extra["aggregation_e2e"] = run_aggregation(log=_stderr)
         out["extra"] = extra
     print(json.dumps(out), flush=True)
     return out

@@ -33,6 +33,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from functools import lru_cache
 from pathlib import Path
 
@@ -65,6 +66,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
+_LOAD_LOCK = threading.Lock()   # the aggregator's threads share one library
 BUILD_LOG = ""
 
 # Argument types of each C launcher: v pointer, l long long, i int
@@ -129,20 +131,26 @@ def build() -> Path:
 
 
 def _load():
-    """The kernels, built and loaded at first use."""
+    """The kernels, built and loaded at first use, by one thread at a time."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, sig in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = [_CTYPES[c] for c in sig]
-            fn.restype = ctypes.c_int
-        tile = _eval_attrs(lib, 4)["tile"]
-        if tile != EVAL_TILE:       # _block_sums_plain's schedule reads EVAL_TILE
-            raise RuntimeError(f"the library's eval tile is {tile} entries, "
-                               f"EVAL_TILE {EVAL_TILE}")
-        _lib = lib
+        with _LOAD_LOCK:
+            if _lib is None:
+                _lib = _load_library()
     return _lib
+
+
+def _load_library():
+    lib = ctypes.CDLL(str(build()))
+    for name, sig in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_CTYPES[c] for c in sig]
+        fn.restype = ctypes.c_int
+    tile = _eval_attrs(lib, 4)["tile"]
+    if tile != EVAL_TILE:       # _block_sums_plain's schedule reads EVAL_TILE
+        raise RuntimeError(f"the library's eval tile is {tile} entries, "
+                           f"EVAL_TILE {EVAL_TILE}")
+    return lib
 
 
 def _check_limbs(*ts: torch.Tensor) -> torch.device:

@@ -150,7 +150,8 @@ def test_import_leaves_jax_and_gkr_tpu_out():
     code = ("import sys, gkr_tpu_torch, gkr_tpu_torch.convert, "
             "gkr_tpu_torch.torcheng.kernels, gkr_tpu_torch.torcheng.backend, "
             "gkr_tpu_torch.torcheng.fused, gkr_tpu_torch.bench, "
-            "gkr_tpu_torch.probes\n"
+            "gkr_tpu_torch.probes, gkr_tpu_torch.cli, gkr_tpu_torch.frontend, "
+            "gkr_tpu_torch.recursion.aggregator\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gkr_tpu', 'bench', 'scripts')]\n"
             "assert not bad, bad\n")
@@ -168,6 +169,12 @@ def test_sources_import_no_jax_or_gkr_tpu():
                  if pat.search(f.read_text())]
     assert len(files) > 10
     assert {"bench.py", "probes.py"} <= {f.name for f in files}
+    names = {str(f.relative_to(ROOT / "gkr_tpu_torch")) for f in files[:-1]}
+    assert {"cli.py", "__main__.py", "examples.py", "frontend/r1cs.py",
+            "frontend/wtns.py", "frontend/symfile.py", "frontend/compiler.py",
+            "recursion/serialize.py", "recursion/templating.py",
+            "recursion/native.py", "recursion/circom_driver.py",
+            "recursion/aggregator.py"} <= names
     assert offenders == []
 
 
