@@ -73,6 +73,23 @@ Phases, each fatal on failure:
      the export, its device time by kernel (torch.profiler); then
      prove-r1cs of the export with 4 threads and with 1 on the card (equal
      bytes) and verify of every subcircuit;
+ 12. the multi-device engine (gkr_tpu_torch.parallel): synth_circuit(20, 16)
+     proved on the CLI's path (`--backend sharded --devices D`'s backend,
+     `aggregator.prove_subcircuits`), a ShardedBackend over D = 2 and 8
+     shards of the one card, each proof byte-equal to [5]'s, the round chain's launch counts exact
+     (`expected_sharded`: D evals, one round_tail at G = D and D folds a
+     round, then log2 D rounds on the gathered stack) and every kernel of
+     the path launched, the wall clock beside [5]'s (the shards share one
+     card: no multi-card figure), the port's verify of the D = 8 proof; one
+     layer with a 70,000-gate bucket in one shard, its transcript equal to
+     the host engine's;
+ 13. the in-circuit verifier executors on card proofs: the circom fixture's
+     subcircuit 0 and the toy circuit proved with every layer on the fused
+     kernels, each equal to the port's prove_spec; the port's interpreter
+     (templated VerifyGKR and VerifyGKRStrongFS, gkr_tpu_torch/circuits)
+     and native.verify_gkr_gadget accept the honest proofs; one value of
+     each proof field tampered: both strong executors reject, the weak
+     ones agree;
 then one JSON line of every kernel with its launches, time and bound.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it.  Imports nothing of jax or gkr_tpu.
@@ -1233,6 +1250,227 @@ def phase_aggregation(K, tmp: str):
     return round1
 
 
+# The kernels the sharded engine launches on every layer ([12]).
+ON_SHARDED_PATH = ("phase1_eval", "phase2_eval", "phase1_partials", "phase2_partials",
+                   "round_tail", "fold", "seg_sum", "eq_table", "mont_mul",
+                   "normalize", "normalize_mul", "stack")
+
+
+def expected_sharded(circuit, D: int) -> dict[str, int]:
+    """The sharded engine's launches of the round chain for one prove over D
+    shards on one device: while a shard holds 2 rows or more, D evals, one
+    round_tail (G = D) and D folds a round; then log2 D rounds of the
+    fused engine on the gathered (D, t, 16) stack; eq(z), eq_hi and eq_lo
+    once a layer (one distinct device)."""
+    ld = D.bit_length() - 1
+    ks = [layer.k_next for layer in circuit.layers]
+    local = sum(k - ld for k in ks)
+    tail = ld * len(ks) if D > 1 else 0
+    return {"phase1_eval": local * D, "phase2_eval": local * D,
+            "phase1_partials": tail, "phase2_partials": tail,
+            "round_tail": 2 * sum(ks), "fold": 2 * (local * D + tail),
+            "eq_table": 3 * len(ks), "mimc_multi": 0}
+
+
+def phase_sharded(K, P, verify, circuit, w, proof, wall_warm: float,
+                  name_power: str) -> None:
+    """synth_circuit(20, 16) proved over D = 2 and 8 shards of the one card
+    on the CLI's path (`--backend sharded --devices D`: the backend of
+    `cli._backend_args`, the subcircuit proved by
+    `aggregator.prove_subcircuits`): the proof byte-equal to [5]'s
+    single-device fused proof, its launch counts (the sharded engine's, not
+    `prove_pipelined`'s), the wall clock beside [5]'s; the port's verify of
+    the D = 8 proof; then one hot-bucket layer against the host engine."""
+    import argparse
+
+    from gkr_tpu_torch import cli
+    from gkr_tpu_torch.mimc import Mimc7
+    from gkr_tpu_torch.mle import mle_struct
+    from gkr_tpu_torch.parallel import ShardedBackend, ShardedSumcheck, make_mesh
+    from gkr_tpu_torch.recursion.aggregator import prove_subcircuits
+    from gkr_tpu_torch.sumcheck import prove_layer_sumcheck
+
+    want = json.dumps(proof.to_dict())
+    card = torch.device(DEVICE)
+    counts = {}
+    for D in (2, 8):
+        kw = cli._backend_args(argparse.Namespace(backend="sharded", device=None,
+                                                  devices=D, workers=None))
+        backend = kw["backend"]
+        if not isinstance(backend, ShardedBackend) or \
+                backend.mesh != make_mesh(devices=[card] * D):
+            raise AssertionError(f"--backend sharded --devices {D}: {kw}")
+
+        def run():
+            return prove_subcircuits([circuit], [w], check_verify=False, **kw)[0]
+
+        K.reset_launches()
+        got, dt_cold = sync_time(run)
+        counts[D] = launched(K)
+        again, dt_warm = sync_time(run)
+        if json.dumps(got.to_dict()) != want or json.dumps(again.to_dict()) != want:
+            raise AssertionError(f"D = {D}: the sharded proof differs from [5]'s")
+        print(f"  D = {D}: launches {counts[D]}", flush=True)
+        exp = expected_sharded(circuit, D)
+        wrong = {k: (counts[D].get(k, 0), v) for k, v in exp.items()
+                 if counts[D].get(k, 0) != v}
+        missing = [k for k in ON_SHARDED_PATH if not counts[D].get(k)]
+        if wrong or missing:
+            raise AssertionError(f"D = {D}: launches (got, expected) {wrong}, "
+                                 f"missing {missing}")
+        print(f"  D = {D} shards of one card ({name_power}): prove {dt_warm:.3f} s "
+              f"(plans cached), {dt_cold:.3f} s (plans built), against the "
+              f"single-device fused prove's {wall_warm:.3f} s ([5], plans cached), "
+              f"host clock; the {D} shards share one card, so this is no "
+              f"multi-card figure; proof byte-equal to [5]'s", flush=True)
+    t0 = time.perf_counter()
+    if not verify(got, circuit):
+        raise AssertionError("the port's verifier rejected the D = 8 proof")
+    print(f"  host: verify of the D = 8 proof: {time.perf_counter() - t0:.3f} s -> "
+          f"True (D = 2's is the same bytes)", flush=True)
+
+    # A hot bucket: 70,000 add gates with left input 0, bucket 0 of shard 0
+    # in phase 1, at a random point (full-size weights): the per-shard
+    # segment sum must carry past 2^16 gates (the reference's fault,
+    # fused.py:83-101); the other outputs are random mult gates
+    rng = np.random.default_rng(12)
+    k_cur, k_next, hot = 17, 10, 70_000
+    lr = rng.integers(0, 1 << k_next, size=(1 << k_cur, 2)).tolist()
+    add = [(o, 0, lr[o][1]) for o in range(hot)]
+    mult = [(o, *lr[o]) for o in range(hot, 1 << k_cur)]
+    w_next = [rand_field(rng, P) for _ in range(1 << k_next)]
+    z = [rand_field(rng, P) for _ in range(k_cur)]
+    struct = mle_struct(w_next)
+    K.reset_launches()
+    got, dt = sync_time(lambda: ShardedSumcheck(make_mesh(devices=[card] * 2))
+                        .prove_layer_sumcheck(z, w_next, add, mult, k_cur, k_next,
+                                              struct, Mimc7()))
+    hot_counts = launched(K)
+    if got != tuple(prove_layer_sumcheck(z, w_next, add, mult, k_cur, k_next, struct,
+                                         Mimc7())):
+        raise AssertionError("the hot-bucket layer's sharded transcript differs "
+                             "from the host engine's")
+    if not hot_counts.get("seg_sum"):
+        raise AssertionError(f"the hot-bucket layer launched no seg_sum: {hot_counts}")
+    print(f"  hot bucket: {hot:,} add gates on left input 0 (bucket 0 of shard 0 of 2), "
+          f"2^{k_next} entries: transcript equal to the host engine's "
+          f"({dt:.3f} s; launches {hot_counts})", flush=True)
+
+
+# Tampers of one value of each proof field, applied to the padded proof both
+# executors consume; each targets a structural (non-padding) position.
+TAMPERS = {
+    "coeffs": lambda p, P: p.sumcheck_proofs[0][1].__setitem__(
+        -1, (p.sumcheck_proofs[0][1][-1] + 1) % P),
+    "q": lambda p, P: p.q[0].__setitem__(-1, (p.q[0][-1] + 1) % P),
+    "z": lambda p, P: p.z[1].__setitem__(0, (p.z[1][0] + 1) % P),
+    "r": lambda p, P: p.r.__setitem__(0, (p.r[0] + 1) % P),
+    "sumcheckr": lambda p, P: p.sumcheck_r[0].__setitem__(
+        1, (p.sumcheck_r[0][1] + 1) % P),
+    "d": lambda p, P: p.d[0].__setitem__(0, (p.d[0][0] + 1) % P),
+    "input_func": lambda p, P: p.input_func[0].__setitem__(
+        0, (p.input_func[0][0] + 1) % P),
+}
+
+
+def phase_executors(K, P, tmp: str) -> None:
+    """The fixture's subcircuit 0 (tests/fixtures/circom_mimc) and the toy
+    circuit proved on the card with every layer through the fused kernels;
+    each proof equal to the port's spec prover's; then the tamper matrix
+    over the port's two in-circuit verifier executors: the circom
+    interpreter on the templated VerifyGKR / VerifyGKRStrongFS circuits
+    (gkr_tpu_torch/circuits) and native.verify_gkr_gadget."""
+    from gkr_tpu_torch import TorchBackend, prove
+    from gkr_tpu_torch.circuit import GateLayer, GKRCircuit
+    from gkr_tpu_torch.frontend import R1csFile, WtnsFile, compile_r1cs_to_gkr
+    from gkr_tpu_torch.recursion.circom_interp import ConstraintFailure, run_circuit
+    from gkr_tpu_torch.recursion.native import (ConstraintBuilder, proof_shape,
+                                                verify_gkr_gadget)
+    from gkr_tpu_torch.recursion.serialize import (CircomInputProof, get_meta,
+                                                   modify_proof_for_circom,
+                                                   write_aggregated_input)
+    from gkr_tpu_torch.recursion.templating import modify_circom_file, structural_lens
+    from gkr_tpu_torch.spec import prove_spec
+
+    fix = os.path.join("tests", "fixtures", "circom_mimc")
+    circuits, ws, _ = compile_r1cs_to_gkr(R1csFile.read(os.path.join(fix, "circuit.r1cs")),
+                                          WtnsFile.read(os.path.join(fix, "witness.wtns")))
+    toy = GKRCircuit([GateLayer(1, 2, mult_gates=[(0, 0, 1), (1, 2, 3)]),
+                      GateLayer(2, 2, mult_gates=[(0, 0, 0), (1, 1, 1), (2, 1, 2),
+                                                  (3, 3, 3)])], input_k=2)
+    user = os.path.join("examples", "mimc")
+    include = [os.path.join("gkr_tpu_torch", "circuits")]
+    for label, circuit, w in (("circom_mimc subcircuit 0", circuits[0], ws[0]),
+                              ("toy circuit", toy, toy.evaluate([3, 2, 3, 1]))):
+        K.reset_launches()
+        proof, dt = sync_time(lambda: prove(circuit, w, backend=TorchBackend(
+            device=DEVICE, host_threshold=0)))
+        counts = launched(K)
+        missing = [k for k in ("phase1_partials", "phase2_partials", "round_tail",
+                               "fold") if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"{label}: no {missing} launched: {counts}")
+        if proof != prove_spec(circuit, w):
+            raise AssertionError(f"{label}: the card's proof differs from prove_spec's")
+        print(f"  {label} (k = {circuit.k_list()}): proved on the card in {dt:.3f} s "
+              f"with host_threshold 0, launches {counts}; equal to the port's "
+              f"prove_spec", flush=True)
+        metas = get_meta([proof])
+        d = os.path.join(tmp, label.split()[0])
+        os.makedirs(d)
+        strong = modify_circom_file(os.path.join(user, "circuit.circom"), metas,
+                                    os.path.join(d, "strong.circom"),
+                                    lens=structural_lens([proof]))
+        weak = modify_circom_file(os.path.join(user, "circuit.circom"), metas,
+                                  os.path.join(d, "weak.circom"))
+
+        def verdicts(padded, tag):
+            path = write_aggregated_input(os.path.join(user, "input1.json"),
+                                          [CircomInputProof(padded)],
+                                          os.path.join(d, f"agg_{tag}.json"))
+            with open(path) as f:
+                inputs = json.load(f)
+            out = {}
+            for name, text in (("strong circuit", strong), ("weak circuit", weak)):
+                try:
+                    run_circuit(text, json.loads(json.dumps(inputs)), include_dirs=include)
+                    out[name] = True
+                except ConstraintFailure:
+                    out[name] = False
+            for name, full in (("strong gadget", True), ("weak gadget", False)):
+                try:
+                    verify_gkr_gadget(ConstraintBuilder(), padded, metas[0],
+                                      circuit=circuit if full else None, full_fs=full,
+                                      shape=proof_shape(proof) if full else None)
+                    out[name] = True
+                except AssertionError:
+                    out[name] = False
+            return out
+
+        honest = verdicts(modify_proof_for_circom([proof], metas)[0], "honest")
+        if not all(honest.values()):
+            raise AssertionError(f"{label}: the honest card proof was rejected: {honest}")
+        rows = []
+        for field, tamper in TAMPERS.items():
+            padded = modify_proof_for_circom([proof], metas)[0]
+            target = {"coeffs": padded.sumcheck_proofs, "d": padded.d}.get(field)
+            if target is not None and not (target and target[0]):
+                rows.append(f"{field}: no rows to tamper")
+                continue
+            tamper(padded, P)
+            v = verdicts(padded, field)
+            if v["strong circuit"] or v["strong gadget"]:
+                raise AssertionError(f"{label}: a strong executor accepted tampered "
+                                     f"{field}: {v}")
+            if v["weak circuit"] != v["weak gadget"]:
+                raise AssertionError(f"{label}: the weak executors disagree on "
+                                     f"tampered {field}: {v}")
+            rows.append(f"{field}: strong both reject, weak both "
+                        f"{'accept' if v['weak gadget'] else 'reject'}")
+        print(f"    honest proof: accepted by all four executors; "
+              + "; ".join(rows), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1353,7 +1591,7 @@ def main() -> int:
                                            circuit, w, proof, fused)
     print(f"  pipelined prove {wall_pipe:.3f} s against the fused prove's "
           f"{wall_warm:.3f} s, plans cached (host clock, this run)", flush=True)
-    del circuit, w, proof, backend
+    del backend              # circuit, w and [5]'s proof stay for [12]
 
     print("[8] the port bench: gkr_tpu_torch.bench.main(), k = 20", flush=True)
     from_probes = phase_bench(K, bench)
@@ -1371,6 +1609,16 @@ def main() -> int:
               "--backend torch --export agg over examples/mimc/input1, input2; "
               "prove-r1cs and verify of the export", flush=True)
         phase_aggregation(K, tmp)
+
+    print("[12] the multi-device engine: synth_circuit(20, 16) on the CLI's path, "
+          "--backend sharded --devices D (ShardedBackend(make_mesh(devices=[cuda:0] "
+          "* D))) through prove_subcircuits, D = 2 and 8", flush=True)
+    phase_sharded(K, P, verify, circuit, w, proof, wall_warm, name_power)
+    del circuit, w, proof
+    with tempfile.TemporaryDirectory(prefix="gkr_exec_") as tmp:
+        print("[13] the executors on card proofs: the interpreter (VerifyGKR, "
+              "VerifyGKRStrongFS) and verify_gkr_gadget, honest and tampered", flush=True)
+        phase_executors(K, P, tmp)
 
     for row in rows:
         src = (per_round if row["name"] in LAUNCHES_FROM_PER_ROUND

@@ -7,8 +7,9 @@ hand-written CUDA kernels (`torcheng/`, `csrc/`).  The host modules
 (field, MiMC, MLE, circuit, proof, prover, verifier) and the entry points
 (`frontend/`: R1CS and witness files and their compiler to GKR circuits;
 `recursion/`: native and circom-path aggregation; `cli`, run as
-`python -m gkr_tpu_torch`) are this package's own copies; it imports
-neither `jax` nor `gkr_tpu`.
+`python -m gkr_tpu_torch`; `spec/`, the readable spec prover) are this
+package's own copies; `parallel/` runs each layer sumcheck over D shards
+(`ShardedBackend`).  It imports neither `jax` nor `gkr_tpu`.
 """
 
 from .circuit import GateLayer, GKRCircuit, get_k

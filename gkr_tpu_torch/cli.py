@@ -10,7 +10,10 @@ Extensions:
   prove-native  circom-free recursive aggregation of a built-in example
 
 --backend torch (the default) proves on the CUDA card and fails without
-one; --backend host proves with the exact host engine (Python ints).
+one; --backend sharded proves each layer sumcheck over D shards
+(`parallel.ShardedBackend`: every visible card, or --devices N shards taking
+the cards in turn; --device cpu puts the shards on the CPU instead);
+--backend host proves with the exact host engine (Python ints).
 """
 
 from __future__ import annotations
@@ -18,34 +21,58 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from functools import partial
 
 
-BACKENDS = ("torch", "host")
+BACKENDS = ("torch", "host", "sharded")
 WORKERS_HELP = ("subcircuit prove parallelism: threads on the card (default "
                 "1) or host processes (default 8; the reference's rayon "
                 "par_iter analog)")
+DEVICE_HELP = ("--backend sharded: where the shards prove, cuda (the default: "
+               "every visible card; fails without one) or cpu")
+DEVICES_HELP = ("--backend sharded: the number of shards D, a power of two "
+                "(default: one a visible card; fewer cards are taken in turn)")
 
 
-def _backend_factory(name: str):
-    """A zero-arg constructor for the named backend: TorchBackend (the
-    card) or the pure-Python HostBackend."""
-    if name == "torch":
+def _add_backend_args(p, workers: bool = True) -> None:
+    """--backend, --device and --devices (the latter two for --backend
+    sharded alone, checked in `main`), and --workers where `workers`."""
+    p.add_argument("--backend", default="torch", choices=BACKENDS)
+    p.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                   help=DEVICE_HELP)
+    p.add_argument("--devices", type=int, default=None, help=DEVICES_HELP)
+    if workers:
+        p.add_argument("--workers", type=int, default=None, help=WORKERS_HELP)
+
+
+def _backend_factory(args):
+    """A zero-arg constructor for --backend: TorchBackend (the card),
+    ShardedBackend over `make_mesh` on --device (its D and devices printed
+    once, to stderr) or the pure-Python HostBackend."""
+    if args.backend == "torch":
         from .torcheng.backend import TorchBackend
         return TorchBackend
+    if args.backend == "sharded":
+        from .parallel.sharding import ShardedBackend, distinct, make_mesh
+        mesh = make_mesh(args.devices, devices=[args.device]
+                         if args.device == "cpu" else None)
+        print(f"sharded backend: D = {len(mesh)} shards on "
+              + ", ".join(str(d) for d in distinct(mesh)), file=sys.stderr)
+        return partial(ShardedBackend, mesh)
     from .prover import HostBackend
     return HostBackend
 
 
 def _backend_args(args) -> dict:
     """Map --backend/--workers onto prove_subcircuits' pool contract
-    (recursion/aggregator.py).  --backend torch proves the subcircuits one
-    after another on the card by default: threads sharing one card and its
-    stream were about 2x slower than one (PERF.md §7); --workers N > 1
-    gives each of N threads its own TorchBackend through a
+    (recursion/aggregator.py).  --backend torch and sharded prove the
+    subcircuits one after another on the card by default: threads sharing
+    one card and its stream were about 2x slower than one (PERF.md §7);
+    --workers N > 1 gives each of N threads its own backend through a
     backend_factory.  --backend host passes one HostBackend, which takes
     the spawn process pool inside prove_subcircuits, 8 workers by default
     (the reference's rayon par_iter, aggregator.rs:411-416)."""
-    factory = _backend_factory(args.backend)
+    factory = _backend_factory(args)
     if args.backend == "host":
         return {"backend": factory(), "max_workers": args.workers or 8}
     workers = args.workers or 1
@@ -124,7 +151,7 @@ def cmd_prove_native(args) -> int:
         with open(path) as f:
             inputs.append(json.load(f))
     proofs = prove_all_native(fn, inputs,
-                              backend=_backend_factory(args.backend)(),
+                              backend=_backend_factory(args)(),
                               export_final=args.export,
                               full_fs=not args.weak_gadget,
                               recombination=not args.weak_gadget)
@@ -144,9 +171,7 @@ def main(argv=None) -> int:
     p = sub.add_parser("prove", help="circom aggregation flow")
     p.add_argument("-c", "--circuit", required=True)
     p.add_argument("-i", "--inputs", nargs="+", required=True)
-    p.add_argument("--backend", default="torch", choices=BACKENDS)
-    p.add_argument("--workers", type=int, default=None,
-                   help=WORKERS_HELP)
+    _add_backend_args(p)
     p.add_argument("--strong-circom", action="store_true",
                    help="embed the Fiat-Shamir-strengthened "
                         "VerifyGKRStrongFS gadget (gkr_verifier_fs.circom: "
@@ -164,9 +189,7 @@ def main(argv=None) -> int:
     p.add_argument("--wtns", required=True)
     p.add_argument("--sym")
     p.add_argument("-o", "--output")
-    p.add_argument("--backend", default="torch", choices=BACKENDS)
-    p.add_argument("--workers", type=int, default=None,
-                   help=WORKERS_HELP)
+    _add_backend_args(p)
     p.set_defaults(fn=cmd_prove_r1cs)
 
     p = sub.add_parser("verify", help="verify proof JSON")
@@ -179,7 +202,7 @@ def main(argv=None) -> int:
     p.add_argument("--example", default="mimc", choices=["mimc", "square"])
     p.add_argument("-i", "--inputs", nargs="+", required=True)
     p.add_argument("--export", default=None)
-    p.add_argument("--backend", default="torch", choices=BACKENDS)
+    _add_backend_args(p, workers=False)
     p.add_argument("--weak-gadget", action="store_true",
                    help="embed the reference-parity WEAK verifier gadget "
                         "(free Fiat-Shamir inputs, no wiring recombination "
@@ -190,6 +213,9 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_prove_native)
 
     args = ap.parse_args(argv)
+    if (getattr(args, "backend", "sharded") != "sharded"
+            and (args.device is not None or args.devices is not None)):
+        ap.error("--device and --devices are options of --backend sharded")
     return args.fn(args)
 
 

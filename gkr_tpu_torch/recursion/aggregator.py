@@ -59,15 +59,16 @@ def _prove_subcircuit_task(args):
 
 def _prove_auto(circuit, w_values, backend):
     """prove(), routed through the device-resident pipelined walk when the
-    backend is a TorchBackend on a CUDA card AND the circuit has
-    device-sized layers: prove_pipelined keeps the z-chain on the card and
-    syncs twice per proof instead of once per layer (the deferred batching
-    of fused.py defer=True threaded through the full layer walk).  No
-    backend means prove()'s default, TorchBackend() on the card.  Every
-    failure propagates."""
+    backend is a TorchBackend that allows it (`pipelined`: not the sharded
+    engine's) on a CUDA card AND the circuit has device-sized layers:
+    prove_pipelined keeps the z-chain on the card and syncs twice per proof
+    instead of once per layer (the deferred batching of fused.py defer=True
+    threaded through the full layer walk).  No backend means prove()'s
+    default, TorchBackend() on the card.  Every failure propagates."""
     if backend is None:
         backend = TorchBackend()
-    if (isinstance(backend, TorchBackend) and backend.device.type == "cuda"
+    if (isinstance(backend, TorchBackend) and backend.pipelined
+            and backend.device.type == "cuda"
             and any(l.k_next > backend.host_threshold
                     for l in circuit.layers)):
         return prove_pipelined(circuit, w_values, backend=backend)

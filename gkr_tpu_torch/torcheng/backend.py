@@ -19,7 +19,8 @@ from ..proof import Proof
 from ..sumcheck import prove_layer_sumcheck, round_poly_len
 from . import kernels as K
 from . import limbs as L
-from .fused import LayerWiring, build_wiring, download, prove_layer_sumcheck_fused
+from .fused import (LayerWiring, build_wiring, cached_plan, download,
+                    prove_layer_sumcheck_fused)
 from .sumcheck import DEVICE_TAIL, prove_layer_sumcheck_torch
 
 
@@ -81,6 +82,11 @@ class TorchBackend:
     per-round engine (`torcheng.sumcheck`), which finishes tables below
     `tail_threshold` entries on the host."""
 
+    # `prove_pipelined` may take this backend's place in `prove()`: it runs
+    # every layer on the single-device fused engine.  A subclass whose
+    # `layer_sumcheck` proves otherwise sets it False.
+    pipelined = True
+
     def __init__(self, device=None, host_threshold: int = 10,
                  tail_threshold: int | None = None, fused: bool = True):
         self.device = torch.device("cuda" if device is None else device)
@@ -106,18 +112,10 @@ class TorchBackend:
         self._packed = {}
 
     def wiring(self, layer_idx: int, add_gates, mult_gates, n: int) -> LayerWiring:
-        """The layer's wiring plan on the device, keyed by the gate lists'
-        identity, their lengths and n.  Gate lists are taken as immutable
-        once proved: an element overwritten in place in the same list object
-        goes unseen (build a fresh circuit instead)."""
-        key = (len(add_gates), len(mult_gates), n)
-        ent = self._wiring.get(layer_idx)
-        if (ent is not None and ent[0] is add_gates and ent[1] is mult_gates
-                and ent[2] == key):
-            return ent[3]
-        w = build_wiring(add_gates, mult_gates, n, self.device)
-        self._wiring[layer_idx] = (add_gates, mult_gates, key, w)
-        return w
+        """The layer's wiring plan on the device, cached by
+        `fused.cached_plan`."""
+        return cached_plan(self._wiring, layer_idx, add_gates, mult_gates, n,
+                           lambda: build_wiring(add_gates, mult_gates, n, self.device))
 
     def packed(self, layer_idx: int | None, w_values) -> torch.Tensor:
         if layer_idx is None:

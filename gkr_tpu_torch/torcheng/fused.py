@@ -61,14 +61,16 @@ class LayerWiring(NamedTuple):
     m2: PhasePlan | None
 
 
-def _gate_columns(gates) -> np.ndarray:
+def gate_columns(gates) -> np.ndarray:
     """Gate triples -> (3, G) int64 [out, left, right]."""
     g = np.fromiter(itertools.chain.from_iterable(gates), dtype=np.int64,
                     count=3 * len(gates))
     return g.reshape(-1, 3).T
 
 
-def _plan(cols: np.ndarray, key: int, n: int, device) -> PhasePlan:
+def phase_plan(cols: np.ndarray, key: int, n: int, device) -> PhasePlan:
+    """The plan of one phase over `gate_columns` `cols`, keyed by row `key`
+    (1: left, 2: right) over n entries, on `device`."""
     keys = cols[key]
     perm = np.argsort(keys, kind="stable")
     hib = np.cumsum(np.bincount(keys, minlength=n))
@@ -85,21 +87,38 @@ def build_wiring(add_gates, mult_gates, n: int, device="cpu") -> LayerWiring:
     plans = []
     with record_function("fused.wiring_plan"):
         for gates in (add_gates, mult_gates):
-            cols = _gate_columns(gates) if gates else None
-            plans.append([None if cols is None else _plan(cols, key, n, device)
+            cols = gate_columns(gates) if gates else None
+            plans.append([None if cols is None else phase_plan(cols, key, n, device)
                           for key in (1, 2)])
     (a1, a2), (m1, m2) = plans
     return LayerWiring(a1, m1, a2, m2)
 
 
+def cached_plan(cache: dict, layer_idx: int, add_gates, mult_gates, n: int,
+                make):
+    """cache[layer_idx]'s plan if it was made from these gate lists, else
+    make() stored there; keyed by the gate lists' identity, their lengths
+    and n.  Gate lists are taken as immutable once proved: an element
+    overwritten in place in the same list object goes unseen (build a fresh
+    circuit instead)."""
+    key = (len(add_gates), len(mult_gates), n)
+    ent = cache.get(layer_idx)
+    if (ent is not None and ent[0] is add_gates and ent[1] is mult_gates
+            and ent[2] == key):
+        return ent[3]
+    plan = make()
+    cache[layer_idx] = (add_gates, mult_gates, key, plan)
+    return plan
+
+
 # ------------------------------------------------------------------ builds
 
-def _build_phase1(w_dev, z_dev, wiring: LayerWiring):
-    """-> the (n, 4, 16) stack [W, HA1, HA2, HM] and eq(z) for phase 2:
-    HA1[b] = sum eq(z, out) and HA2[b] = sum eq(z, out) W[right] over the
-    add gates with left b, HM[b] = the mult gates' sum of the latter."""
-    eqz = K.eq_table(z_dev)
-    ha1 = ha2 = hm = None                   # zeros in the stack
+def phase1_tables(w_dev, eqz, wiring: LayerWiring):
+    """-> [HA1, HA2, HM], each (n, 16) or None for zeros, n the length of
+    the plans' `hib`: HA1[b] = sum eq(z, out) and HA2[b] = sum eq(z, out)
+    W[right] over the add gates with key b, HM[b] = the mult gates' sum of
+    the latter.  W[right] is gathered from `w_dev`."""
+    ha1 = ha2 = hm = None
     if wiring.a1 is not None:
         p = wiring.a1
         wa = eqz.index_select(0, p.out)
@@ -111,26 +130,38 @@ def _build_phase1(w_dev, z_dev, wiring: LayerWiring):
         prod = K.mont_mul(eqz.index_select(0, p.out),
                           w_dev.index_select(0, p.other))
         hm = K.normalize(K.seg_sum([prod], p.hib)[0])
-    return K.stack([w_dev, ha1, ha2, hm]), eqz
+    return [ha1, ha2, hm]
+
+
+def phase2_tables(eqz, eqb_at, wb, wiring: LayerWiring):
+    """-> [FA, FM * wb], each (n, 16) or None for zeros: FA[c] (FM[c]) sums
+    eq(z, out) eq(b*, left) over the add (mult) gates with key c, where
+    `eqb_at(left)` gathers eq(b*, left) for a column of left indices."""
+    def table(p: PhasePlan | None, scalar=None):
+        if p is None:
+            return None
+        prod = K.mont_mul(eqz.index_select(0, p.out), eqb_at(p.other))
+        return K.normalize(K.seg_sum([prod], p.hib)[0], scalar)
+
+    return [table(wiring.a2), table(wiring.m2, wb)]
+
+
+def _build_phase1(w_dev, z_dev, wiring: LayerWiring):
+    """-> the (n, 4, 16) stack [W, HA1, HA2, HM] and eq(z) for phase 2."""
+    eqz = K.eq_table(z_dev)
+    return K.stack([w_dev, *phase1_tables(w_dev, eqz, wiring)]), eqz
 
 
 def _build_phase2(w_dev, b_star, wb, eqz, wiring: LayerWiring):
-    """-> the (n, 3, 16) stack [W, FA, FM * wb]: FA[c] (FM[c]) sums
-    eq(z, out) eq(b*, left) over the add (mult) gates with right c."""
+    """-> the (n, 3, 16) stack [W, FA, FM * wb]."""
     eqb = K.eq_table(b_star)
-
-    def table(p: PhasePlan | None, scalar=None):
-        if p is None:
-            return None                     # zeros in the stack
-        prod = K.mont_mul(eqz.index_select(0, p.out), eqb.index_select(0, p.other))
-        return K.normalize(K.seg_sum([prod], p.hib)[0], scalar)
-
-    return K.stack([w_dev, table(wiring.a2), table(wiring.m2, wb)])
+    return K.stack([w_dev, *phase2_tables(
+        eqz, lambda left: eqb.index_select(0, left), wb, wiring)])
 
 
 # ------------------------------------------------------------- round chain
 
-def _run_phase(S, sched, wb=None):
+def run_phase(S, sched, wb=None):
     """Every round of one phase on the card: -> (the one-entry stack,
     (len(sched), 3, 16) coefficients (c2, c1, c0), (len(sched), 16)
     challenges)."""
@@ -142,6 +173,45 @@ def _run_phase(S, sched, wb=None):
         rs.append(r)
         S = K.fold(S, r)
     return S, torch.stack(coeffs), torch.stack(rs)
+
+
+def round_schedule(transcript: Mimc7, w_struct: MleStruct, k: int,
+                   add_gates, mult_gates) -> tuple[int, ...]:
+    """The 2k rounds' polynomial lengths of a layer with 2^k-entry tables,
+    from the host's structural rule; raises ValueError where the device
+    transcript cannot follow (a hash other than MiMC7-91, a length other
+    than 2 or 3)."""
+    if transcript.n_rounds != K.MIMC_ROUNDS:
+        raise ValueError(f"the device Fiat-Shamir hash is MiMC7-"
+                         f"{K.MIMC_ROUNDS}, not {transcript.n_rounds} rounds")
+    v = 2 * k
+    sup = w_struct.support if not w_struct.empty else [False] * k
+    sched = tuple(round_poly_len(j, v, sup, len(add_gates) > 0,
+                                 len(mult_gates) > 0) for j in range(1, v + 1))
+    if any(length not in (2, 3) for length in sched):
+        raise ValueError(f"round polynomial lengths {sched} out of the "
+                         f"protocol's range")
+    return sched
+
+
+def check_transcript(coeffs: torch.Tensor, rs: torch.Tensor, sched,
+                     transcript: Mimc7):
+    """A layer's downloaded (v, 3, 16) coefficients and (v, 16) challenges
+    -> (proof, challenges): each round's coefficients cut to its length,
+    re-hashed by the host's MiMC7; RuntimeError on the first challenge the
+    device got otherwise."""
+    flat = L.unpack(coeffs.reshape(-1, 16))
+    rs_device = L.unpack(rs)
+    proof: list[list[int]] = []
+    challenges: list[int] = []
+    for j in range(1, len(sched) + 1):
+        c = shape_coeffs(flat[3 * (j - 1):3 * j], sched[j - 1])
+        proof.append(c)
+        r = transcript.multi_hash(c, 0)
+        if r != rs_device[j - 1]:
+            raise RuntimeError(f"device/host Fiat-Shamir divergence at round {j}")
+        challenges.append(r)
+    return proof, challenges
 
 
 DOWNLOADS = 0                # calls of `download`: one host sync each
@@ -183,15 +253,7 @@ def prove_layer_sumcheck_fused(
     k = k_next
     v = 2 * k
     assert v >= 2
-    if transcript.n_rounds != K.MIMC_ROUNDS:
-        raise ValueError(f"the device Fiat-Shamir hash is MiMC7-"
-                         f"{K.MIMC_ROUNDS}, not {transcript.n_rounds} rounds")
-    sup = w_struct.support if not w_struct.empty else [False] * k
-    sched = tuple(round_poly_len(j, v, sup, len(add_gates) > 0,
-                                 len(mult_gates) > 0) for j in range(1, v + 1))
-    if any(length not in (2, 3) for length in sched):
-        raise ValueError(f"round polynomial lengths {sched} out of the "
-                         f"protocol's range")
+    sched = round_schedule(transcript, w_struct, k, add_gates, mult_gates)
     n = 1 << k
 
     if w_dev is None:
@@ -205,29 +267,18 @@ def prove_layer_sumcheck_fused(
     with record_function("fused.build_phase1"):
         S1, eqz = _build_phase1(w_dev, z_dev, wiring)
     with record_function("fused.phase1_rounds"):
-        S1, co1, rs1 = _run_phase(S1, sched[:k])
+        S1, co1, rs1 = run_phase(S1, sched[:k])
     wb = S1[0, 0]
     with record_function("fused.build_phase2"):
         S2 = _build_phase2(w_dev, rs1, wb, eqz, wiring)
     del eqz
     with record_function("fused.phase2_rounds"):
-        _, co2, rs2 = _run_phase(S2, sched[k:], wb)
+        _, co2, rs2 = run_phase(S2, sched[k:], wb)
 
     def finish(host_arrays):
         h1, h2, hr1, hr2 = host_arrays
-        flat = L.unpack(torch.cat([h1.reshape(-1, 16), h2.reshape(-1, 16)]))
-        rs_device = L.unpack(torch.cat([hr1, hr2]))
-        proof: list[list[int]] = []
-        challenges: list[int] = []
-        for j in range(1, v + 1):
-            coeffs = shape_coeffs(flat[3 * (j - 1):3 * j], sched[j - 1])
-            proof.append(coeffs)
-            r = transcript.multi_hash(coeffs, 0)
-            if r != rs_device[j - 1]:
-                raise RuntimeError(
-                    f"device/host Fiat-Shamir divergence at round {j}")
-            challenges.append(r)
-        return proof, challenges
+        return check_transcript(torch.cat([h1, h2]), torch.cat([hr1, hr2]),
+                                sched, transcript)
 
     device_arrays = (co1, co2, rs1, rs2)
     if defer:

@@ -210,10 +210,6 @@ def _normalize_rows_plain(x: torch.Tensor) -> torch.Tensor:
     return mont_mul_plain(L.redc(x), L.const("R2_LIMBS", x.device))
 
 
-def _sum_mod_plain(x: torch.Tensor) -> torch.Tensor:
-    return _normalize_rows_plain(x.sum(dim=0, dtype=torch.int64))
-
-
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a * b / R mod p of (..., 16) limbs.
 
@@ -302,21 +298,16 @@ def _eval_grid(half: int) -> int:
 def _phase1_terms_plain(S: torch.Tensor) -> torch.Tensor:
     """(n, 4, 16) -> (3, n/2, 16): (HA1_t + HM_t) * W_t + HA2_t per entry at
     t = 0, 1, 2."""
-    out = []
-    for X in L.eval3_halves(S):
-        w, ha1, ha2, hm = X[:, 0], X[:, 1], X[:, 2], X[:, 3]
-        out.append(L.add_mod(mont_mul_plain(L.add_mod(ha1, hm), w), ha2))
-    return torch.stack(out)
+    X = torch.stack(L.eval3_halves(S))
+    w, ha1, ha2, hm = X[:, :, 0], X[:, :, 1], X[:, :, 2], X[:, :, 3]
+    return L.add_mod(mont_mul_plain(L.add_mod(ha1, hm), w), ha2)
 
 
 def _phase2_terms_plain(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
     """(n, 3, 16) -> (3, n/2, 16): FA_t * (wb + W_t) + FMwb_t * W_t."""
-    out = []
-    for X in L.eval3_halves(S):
-        w, fa, fmwb = X[:, 0], X[:, 1], X[:, 2]
-        out.append(L.add_mod(mont_mul_plain(fa, L.add_mod(wb, w)),
-                             mont_mul_plain(fmwb, w)))
-    return torch.stack(out)
+    X = torch.stack(L.eval3_halves(S))
+    w, fa, fmwb = X[:, :, 0], X[:, :, 1], X[:, :, 2]
+    return L.add_mod(mont_mul_plain(fa, L.add_mod(wb, w)), mont_mul_plain(fmwb, w))
 
 
 def _block_sums_plain(terms: torch.Tensor) -> torch.Tensor:
@@ -332,11 +323,11 @@ def _block_sums_plain(terms: torch.Tensor) -> torch.Tensor:
 
 
 def phase1_eval_plain(S: torch.Tensor) -> torch.Tensor:
-    return torch.stack([_sum_mod_plain(t) for t in _phase1_terms_plain(S)])
+    return _normalize_rows_plain(_phase1_terms_plain(S).sum(dim=1, dtype=torch.int64))
 
 
 def phase2_eval_plain(S: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
-    return torch.stack([_sum_mod_plain(t) for t in _phase2_terms_plain(S, wb)])
+    return _normalize_rows_plain(_phase2_terms_plain(S, wb).sum(dim=1, dtype=torch.int64))
 
 
 def phase1_partials_plain(S: torch.Tensor) -> torch.Tensor:
@@ -639,7 +630,7 @@ def mimc_multi(x: torch.Tensor) -> torch.Tensor:
 # which binds.
 
 def round_coeffs_plain(partials: torch.Tensor) -> torch.Tensor:
-    y0, y1, y2 = (_sum_mod_plain(partials[:, t]) for t in range(3))
+    y0, y1, y2 = _normalize_rows_plain(partials.sum(dim=0, dtype=torch.int64))
     c2 = mont_mul_plain(L.sub_mod(L.add_mod(y2, y0), L.add_mod(y1, y1)),
                         L.const("INV2_LIMBS", partials.device))
     return torch.stack([c2, L.sub_mod(L.sub_mod(y1, y0), c2), y0])

@@ -11,6 +11,7 @@ each add once, in the same order (on the card the kernel's f32_fma rounds
 once a step, so chip_smoke.py compares it with a relative tolerance)."""
 
 import inspect
+import json
 import random
 from collections import Counter
 import runpy
@@ -97,6 +98,50 @@ def test_bench_without_a_card_exits_nonzero(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runpy.run_module("gkr_tpu_torch.bench", run_name="__main__")
     assert '"metric"' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cell", ["raises", "ends"])
+def test_extras_are_printed_before_the_aggregation_cell(monkeypatch, capsys, cell):
+    """GKR_BENCH_EXTRA=1: the line with layer_2e16, full_prove and layer_2e24
+    is out before the aggregation cell starts, so a cell that raises (or never
+    ends) loses none of them; a cell that ends adds a second line with the
+    cell under extra.aggregation_e2e.  Every measurement is stubbed."""
+    monkeypatch.setenv("GKR_BENCH_EXTRA", "1")
+    monkeypatch.setattr(B.probes, "require_card", lambda: None)
+    monkeypatch.setattr(B, "run_device", lambda k, breakdown=True: (1e-3 * k, 1e-4, 1e-4))
+    monkeypatch.setattr(B, "run_kernel_peak", lambda: 1e9)
+    monkeypatch.setattr(B, "run_host", lambda k: 1e3)
+    monkeypatch.setattr(B, "roofline", lambda dt, n, muls: (None, "stubbed"))
+    monkeypatch.setattr(B, "sync_rtt_s", lambda: 1e-5)
+    monkeypatch.setattr(B, "run_device_pipelined", lambda k: (1e6, 1e-2))
+    monkeypatch.setattr(B, "run_full_prove",
+                        lambda k, kin: (3 << k, 2.0, {"prove": 1.0}, 3.0, 1.5))
+    monkeypatch.setattr(B, "card_label", lambda: "stub card")
+    printed_before = []
+
+    def aggregation(log=None):
+        printed_before.append(capsys.readouterr().out)
+        if cell == "raises":
+            raise RuntimeError("the cell failed")
+        return {"total_s": 9.0}
+
+    monkeypatch.setattr(B, "run_aggregation", aggregation)
+    if cell == "raises":
+        with pytest.raises(RuntimeError, match="the cell failed"):
+            B.main()
+    else:
+        B.main()
+    first = printed_before[0].splitlines()
+    assert len(first) == 1
+    extra = json.loads(first[0])["extra"]
+    assert set(extra) == {"layer_2e16", "full_prove", f"layer_2e{B.TOP_K}"}
+    rest = capsys.readouterr().out.splitlines()
+    if cell == "raises":
+        assert rest == []
+    else:
+        assert len(rest) == 1
+        second = json.loads(rest[0])
+        assert second["extra"] == {**extra, "aggregation_e2e": {"total_s": 9.0}}
 
 
 # ----------------------------------------------------------------- probes

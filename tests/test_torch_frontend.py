@@ -206,7 +206,7 @@ def test_cli_has_the_five_subcommands():
     parser_help = io.StringIO()
     with contextlib.redirect_stdout(parser_help), pytest.raises(SystemExit):
         cli.main(["prove-r1cs", "--help"])
-    assert "{torch,host}" in parser_help.getvalue()
+    assert "{torch,host,sharded}" in parser_help.getvalue()
     for cmd in ("prove", "mock-groth", "prove-r1cs", "verify", "prove-native"):
         with contextlib.redirect_stdout(io.StringIO()), pytest.raises(SystemExit) as ex:
             cli.main([cmd, "--help"])
@@ -250,7 +250,7 @@ def test_cli_prove_r1cs_and_verify_match_gkr_tpu(tmp_path):
 def test_cli_proves_on_the_card_one_subcircuit_after_another(monkeypatch):
     """--backend torch takes one backend and no pool unless --workers asks
     for threads; --backend host takes one HostBackend and 8 processes."""
-    monkeypatch.setattr(cli, "_backend_factory", lambda name: lambda: name)
+    monkeypatch.setattr(cli, "_backend_factory", lambda args: lambda: args.backend)
     def args(backend, workers):
         return argparse.Namespace(backend=backend, workers=workers)
 

@@ -153,6 +153,37 @@ def test_phase2_eval_plain_matches_jax(wb):
     assert same(K.phase2_eval_plain(ts, tw[0]), want)
 
 
+def _sum_mod_per_point(x):
+    return K._normalize_rows_plain(x.sum(dim=0, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("n", [4, 64, 1 << 12])
+def test_eval_plain_matches_its_per_point_form(n):
+    """`phase*_eval_plain` and `round_coeffs_plain` take the three points
+    t = 0, 1, 2 in one pass and normalise the three sums at once: bit-equal
+    to the same arithmetic one point at a time (their form before the
+    sharded engine), edge values included."""
+    rng = np.random.default_rng(60 + n)
+    v1, v2 = rand_field(rng, 4 * n), rand_field(rng, 3 * n)
+    v1[:len(EDGE)], v2[-len(EDGE):] = EDGE, EDGE
+    S1, S2 = L.pack(v1).reshape(n, 4, 16), L.pack(v2).reshape(n, 3, 16)
+    want1 = torch.stack([_sum_mod_per_point(L.add_mod(K.mont_mul_plain(
+        L.add_mod(X[:, 1], X[:, 3]), X[:, 0]), X[:, 2])) for X in L.eval3_halves(S1)])
+    assert torch.equal(K.phase1_eval_plain(S1), want1)
+    for wb_int in (rand_field(rng, 1)[0], 0, P - 1):
+        wb = L.pack_scalar(wb_int, "cpu")
+        want2 = torch.stack([_sum_mod_per_point(L.add_mod(
+            K.mont_mul_plain(X[:, 1], L.add_mod(wb, X[:, 0])),
+            K.mont_mul_plain(X[:, 2], X[:, 0]))) for X in L.eval3_halves(S2)])
+        assert torch.equal(K.phase2_eval_plain(S2, wb), want2)
+    part = L.pack(rand_field(rng, 3 * n // 2) + [P - 1] * (3 * n // 2)).reshape(n, 3, 16)
+    y0, y1, y2 = (_sum_mod_per_point(part[:, t]) for t in range(3))
+    c2 = K.mont_mul_plain(L.sub_mod(L.add_mod(y2, y0), L.add_mod(y1, y1)),
+                          L.const("INV2_LIMBS", "cpu"))
+    want = torch.stack([c2, L.sub_mod(L.sub_mod(y1, y0), c2), y0])
+    assert torch.equal(K.round_coeffs_plain(part), want)
+
+
 def test_eq_table_device_matches_jax_and_host():
     """The eq_table kernel's plain version (both engines' eq tables) against
     the JAX limb engine and the host table, edge coordinates included."""

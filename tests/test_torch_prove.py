@@ -151,7 +151,8 @@ def test_import_leaves_jax_and_gkr_tpu_out():
             "gkr_tpu_torch.torcheng.kernels, gkr_tpu_torch.torcheng.backend, "
             "gkr_tpu_torch.torcheng.fused, gkr_tpu_torch.bench, "
             "gkr_tpu_torch.probes, gkr_tpu_torch.cli, gkr_tpu_torch.frontend, "
-            "gkr_tpu_torch.recursion.aggregator\n"
+            "gkr_tpu_torch.recursion.aggregator, gkr_tpu_torch.recursion.circom_interp, "
+            "gkr_tpu_torch.spec, gkr_tpu_torch.parallel\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gkr_tpu', 'bench', 'scripts')]\n"
             "assert not bad, bad\n")
@@ -174,7 +175,9 @@ def test_sources_import_no_jax_or_gkr_tpu():
             "frontend/wtns.py", "frontend/symfile.py", "frontend/compiler.py",
             "recursion/serialize.py", "recursion/templating.py",
             "recursion/native.py", "recursion/circom_driver.py",
-            "recursion/aggregator.py"} <= names
+            "recursion/aggregator.py", "recursion/circom_interp.py",
+            "spec/__init__.py", "spec/gkr_spec.py", "parallel/__init__.py",
+            "parallel/sharding.py"} <= names
     assert offenders == []
 
 
