@@ -90,6 +90,19 @@ Phases, each fatal on failure:
      and native.verify_gkr_gadget accept the honest proofs; one value of
      each proof field tampered: both strong executors reject, the weak
      ones agree;
+ 14. the multi-controller path (gkr_tpu_torch.parallel.multihost): 2 ranks
+     of one torch.distributed group on cuda:0 over gloo (NCCL refuses two
+     ranks on one card), each proving synth_circuit(20, 16) through
+     ShardedBackend(make_mesh(hosts=2)) at 1 and 4 shards a rank (global
+     D = 2 and 8): each rank's proof byte-equal to [5]'s, its launches
+     exact (`expected_multihost`) with every kernel of the sharded path
+     launched, its collectives and their bytes exact (`expected_gathers`),
+     the warm wall clock beside [5]'s and [12]'s (the ranks share the
+     card: no multi-card figure), the port's verify of rank 0's proof; a
+     70,000-gate bucket in rank 1's shard, both ranks' transcripts equal to
+     the host engine's; the scaling twin's rows at k = 20 with its
+     collective audit (shared rows: no headline on one card) and the
+     subcircuits twin at 1, 2 and 4 threads on the card;
 then one JSON line of every kernel with its launches, time and bound.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it.  Imports nothing of jax or gkr_tpu.
@@ -1273,14 +1286,15 @@ def expected_sharded(circuit, D: int) -> dict[str, int]:
 
 
 def phase_sharded(K, P, verify, circuit, w, proof, wall_warm: float,
-                  name_power: str) -> None:
+                  name_power: str) -> dict[int, float]:
     """synth_circuit(20, 16) proved over D = 2 and 8 shards of the one card
     on the CLI's path (`--backend sharded --devices D`: the backend of
     `cli._backend_args`, the subcircuit proved by
     `aggregator.prove_subcircuits`): the proof byte-equal to [5]'s
     single-device fused proof, its launch counts (the sharded engine's, not
     `prove_pipelined`'s), the wall clock beside [5]'s; the port's verify of
-    the D = 8 proof; then one hot-bucket layer against the host engine."""
+    the D = 8 proof; then one hot-bucket layer against the host engine.
+    -> the warm prove's seconds by D."""
     import argparse
 
     from gkr_tpu_torch import cli
@@ -1292,7 +1306,7 @@ def phase_sharded(K, P, verify, circuit, w, proof, wall_warm: float,
 
     want = json.dumps(proof.to_dict())
     card = torch.device(DEVICE)
-    counts = {}
+    counts, warm = {}, {}
     for D in (2, 8):
         kw = cli._backend_args(argparse.Namespace(backend="sharded", device=None,
                                                   devices=D, workers=None))
@@ -1308,6 +1322,7 @@ def phase_sharded(K, P, verify, circuit, w, proof, wall_warm: float,
         got, dt_cold = sync_time(run)
         counts[D] = launched(K)
         again, dt_warm = sync_time(run)
+        warm[D] = dt_warm
         if json.dumps(got.to_dict()) != want or json.dumps(again.to_dict()) != want:
             raise AssertionError(f"D = {D}: the sharded proof differs from [5]'s")
         print(f"  D = {D}: launches {counts[D]}", flush=True)
@@ -1355,6 +1370,142 @@ def phase_sharded(K, P, verify, circuit, w, proof, wall_warm: float,
     print(f"  hot bucket: {hot:,} add gates on left input 0 (bucket 0 of shard 0 of 2), "
           f"2^{k_next} entries: transcript equal to the host engine's "
           f"({dt:.3f} s; launches {hot_counts})", flush=True)
+    return warm
+
+
+def expected_multihost(circuit, D: int, d_local: int) -> dict[str, int]:
+    """One rank's launches of the round chain for one prove over D = H *
+    d_local shards, d_local of them this rank's, on one device: d_local
+    evals and folds a local round, every round's round_tail (G = D, then
+    the gathered tail's, which every rank runs), log2 D tail rounds a phase,
+    eq(z), eq_hi and eq_lo once a layer.  Summed over the H ranks, the evals
+    are `expected_sharded`'s."""
+    ld = D.bit_length() - 1
+    ks = [layer.k_next for layer in circuit.layers]
+    local = sum(k - ld for k in ks)
+    tail = ld * len(ks)
+    return {"phase1_eval": local * d_local, "phase2_eval": local * d_local,
+            "phase1_partials": tail, "phase2_partials": tail,
+            "round_tail": 2 * sum(ks), "fold": 2 * (local * d_local + tail),
+            "eq_table": 3 * len(ks), "mimc_multi": 0}
+
+
+def expected_gathers(circuit, D: int, hosts: int) -> tuple[dict, dict]:
+    """One rank's collectives for one prove over D shards of `hosts` ranks,
+    and the bytes each gathered: a layer's, as the single controller's
+    (`scaling.expected_collectives`: k - log2 D round gathers of D (3, 16)
+    sums and one tail gather of D one-row stacks a phase), and one
+    exchange of 32-byte challenge digests."""
+    from gkr_tpu_torch.parallel.scaling import expected_collectives
+
+    counts, nbytes = {}, {}
+    for layer in circuit.layers:
+        c, b = expected_collectives(layer.k_next, D)
+        c["digest"], b["digest"] = 1, hosts * 32
+        for kind in c:
+            counts[kind] = counts.get(kind, 0) + c[kind]
+            nbytes[kind] = nbytes.get(kind, 0) + b[kind]
+    return counts, nbytes
+
+
+def phase_multihost(P, verify, circuit, proof, wall_warm: float,
+                    sharded_warm: dict[int, float], name_power: str, tmp: str) -> None:
+    """The multi-controller path: 2 ranks (python -m
+    gkr_tpu_torch.parallel.multihost.spawn) on cuda:0 over gloo, each
+    proving synth_circuit(20, 16) through
+    ShardedBackend(make_mesh(hosts=2)) at 1 and 4 shards a rank (global D
+    = 2 and 8): each rank's proof byte-equal to [5]'s, its launches
+    (`expected_multihost`) and collectives (`expected_gathers`) exact,
+    every kernel of the path launched on each rank, the port's verify of
+    rank 0's D = 2 proof; a 70,000-gate bucket in rank 1's shard against
+    the host engine; then the scaling twin's rows at k = 20 with its
+    collective audit and the subcircuits twin at 1, 2 and 4 threads."""
+    from gkr_tpu_torch.mimc import Mimc7
+    from gkr_tpu_torch.mle import mle_struct
+    from gkr_tpu_torch.parallel import multihost, scaling
+    from gkr_tpu_torch.proof import Proof
+    from gkr_tpu_torch.recursion import subcircuits
+    from gkr_tpu_torch.sumcheck import prove_layer_sumcheck
+
+    hosts = 2
+    want = multihost.proof_digest(proof)
+    proof_out = os.path.join(tmp, "rank0_proof.json")
+    # synth_circuit(k, k_input): layers (4, k), (k, k), (k, k_input)
+    synth = {"k": circuit.layers[0].k_next, "k_input": circuit.input_k}
+    hot = {"k_cur": 17, "k_next": 10, "hot": 70_000, "seed": 12}
+    jobs = [("prove", {**synth, "d_local": 1, "want": want, "proof_out": proof_out}),
+            ("prove", {**synth, "d_local": 4, "want": want}),
+            ("hot", {**hot, "d_local": 1})]
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(jobs, hosts=hosts, d_local=1, device=DEVICE, timeout=600,
+                            log=lambda s: print(f"  {s}", flush=True))
+    print(f"  2 ranks, 3 jobs: {time.perf_counter() - t0:.3f} s with the ranks' "
+          "start", flush=True)
+    for j, d_local in ((0, 1), (1, 4)):
+        D = hosts * d_local
+        exp = expected_multihost(circuit, D, d_local)
+        summed = expected_sharded(circuit, D)
+        if hosts * exp["phase1_eval"] != summed["phase1_eval"]:
+            raise AssertionError(f"D = {D}: the ranks' evals do not add up to "
+                                 f"expected_sharded's {summed['phase1_eval']}")
+        gathers = expected_gathers(circuit, D, hosts)
+        for r, res in enumerate(ranks):
+            job = res[j]
+            if job["digest"] != want or job["foreign_modules"]:
+                raise AssertionError(f"rank {r}, D = {D}: proof digest {job['digest']} "
+                                     f"(want [5]'s {want}), imports {job['foreign_modules']}")
+            got = job["launches"]
+            wrong = {k: (got.get(k, 0), v) for k, v in exp.items() if got.get(k, 0) != v}
+            missing = [k for k in ON_SHARDED_PATH if not got.get(k)]
+            if wrong or missing:
+                raise AssertionError(f"rank {r}, D = {D}: launches (got, expected) "
+                                     f"{wrong}, missing {missing}")
+            if (job["collectives"], job["collective_bytes"]) != gathers:
+                raise AssertionError(f"rank {r}, D = {D}: collectives "
+                                     f"{job['collectives']} {job['collective_bytes']}, "
+                                     f"expected {gathers}")
+            cold, warm = job["seconds"]
+            print(f"  rank {r}, D = {D} ({d_local} a rank): launches {got}; "
+                  f"collectives {job['collectives']}, bytes {job['collective_bytes']}",
+                  flush=True)
+            print(f"  rank {r}, D = {D} ({name_power}): prove {warm:.3f} s (plans "
+                  f"cached), {cold:.3f} s (plans built), against [5]'s single-device "
+                  f"{wall_warm:.3f} s and [12]'s {sharded_warm[D]:.3f} s at D = {D}, "
+                  "host clock; 2 ranks on one card over gloo, so no multi-card "
+                  "figure; proof byte-equal to [5]'s", flush=True)
+    t0 = time.perf_counter()
+    if not verify(Proof.from_json_file(proof_out), circuit):
+        raise AssertionError("the port's verifier rejected rank 0's proof")
+    print(f"  host: verify of rank 0's D = 2 proof: {time.perf_counter() - t0:.3f} s "
+          "-> True", flush=True)
+
+    left = hosts - 1                 # D = 2: rank 1's shard
+    z, w_next, add, mult = multihost.hot_layer(left=left, **hot)
+    want_hot = prove_layer_sumcheck(z, w_next, add, mult, hot["k_cur"], hot["k_next"],
+                                    mle_struct(w_next), Mimc7())
+    for r, res in enumerate(ranks):
+        job = res[2]
+        if job["left"] != left or (job["proof"], job["challenges"]) != \
+                tuple(map(list, want_hot)):
+            raise AssertionError(f"rank {r}: the hot-bucket layer's transcript "
+                                 "differs from the host engine's")
+    rows0 = [res[2]["row0_add_gates"] for res in ranks]
+    if rows0 != [[0], [hot["hot"]]] or not ranks[1][2]["launches"].get("seg_sum"):
+        raise AssertionError(f"the hot bucket is not rank 1's: row 0's add gates "
+                             f"{rows0}, rank 1's launches {ranks[1][2]['launches']}")
+    print(f"  hot bucket: {hot['hot']:,} add gates on left input {left} (rank 1's "
+          f"shard of D = 2), 2^{hot['k_next']} entries: both ranks' transcripts "
+          f"equal the host engine's; rank 1's launches {ranks[1][2]['launches']}",
+          flush=True)
+
+    res = scaling.run(20, reps=2, ds=(1, 2, 4, 8), device=DEVICE,
+                      log=lambda s: print(f"  scaling: {s}", flush=True))
+    print(f"  scaling ({name_power}): " + json.dumps(res), flush=True)
+    if res["headline_efficiency"] is not None and torch.cuda.device_count() == 1:
+        raise AssertionError("a scaling headline from one card")
+    res = subcircuits.run(4, 12, workers=(1, 2, 4), pools=("torch",), device=DEVICE,
+                          log=lambda s: print(f"  subcircuits: {s}", flush=True))
+    print(f"  subcircuits ({name_power}): " + json.dumps(res), flush=True)
 
 
 # Tampers of one value of each proof field, applied to the padded proof both
@@ -1613,12 +1764,20 @@ def main() -> int:
     print("[12] the multi-device engine: synth_circuit(20, 16) on the CLI's path, "
           "--backend sharded --devices D (ShardedBackend(make_mesh(devices=[cuda:0] "
           "* D))) through prove_subcircuits, D = 2 and 8", flush=True)
-    phase_sharded(K, P, verify, circuit, w, proof, wall_warm, name_power)
-    del circuit, w, proof
+    sharded_warm = phase_sharded(K, P, verify, circuit, w, proof, wall_warm, name_power)
+    del w
     with tempfile.TemporaryDirectory(prefix="gkr_exec_") as tmp:
         print("[13] the executors on card proofs: the interpreter (VerifyGKR, "
               "VerifyGKRStrongFS) and verify_gkr_gadget, honest and tampered", flush=True)
         phase_executors(K, P, tmp)
+    with tempfile.TemporaryDirectory(prefix="gkr_multihost_") as tmp:
+        print("[14] the multi-controller path: 2 ranks (torch.distributed, gloo) on "
+              "cuda:0, synth_circuit(20, 16) through ShardedBackend(make_mesh(hosts=2)) "
+              "at 1 and 4 shards a rank; the hot bucket in rank 1; the scaling and "
+              "subcircuits twins", flush=True)
+        phase_multihost(P, verify, circuit, proof, wall_warm, sharded_warm, name_power,
+                        tmp)
+    del circuit, proof
 
     for row in rows:
         src = (per_round if row["name"] in LAUNCHES_FROM_PER_ROUND

@@ -1,1 +1,1 @@
-from .sharding import ShardedBackend, ShardedSumcheck, make_mesh  # noqa: F401
+from .sharding import HostMesh, ShardedBackend, ShardedSumcheck, make_mesh  # noqa: F401

@@ -152,7 +152,8 @@ def test_import_leaves_jax_and_gkr_tpu_out():
             "gkr_tpu_torch.torcheng.fused, gkr_tpu_torch.bench, "
             "gkr_tpu_torch.probes, gkr_tpu_torch.cli, gkr_tpu_torch.frontend, "
             "gkr_tpu_torch.recursion.aggregator, gkr_tpu_torch.recursion.circom_interp, "
-            "gkr_tpu_torch.spec, gkr_tpu_torch.parallel\n"
+            "gkr_tpu_torch.spec, gkr_tpu_torch.parallel, gkr_tpu_torch.parallel.multihost, "
+            "gkr_tpu_torch.parallel.scaling, gkr_tpu_torch.recursion.subcircuits\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gkr_tpu', 'bench', 'scripts')]\n"
             "assert not bad, bad\n")
@@ -177,7 +178,8 @@ def test_sources_import_no_jax_or_gkr_tpu():
             "recursion/native.py", "recursion/circom_driver.py",
             "recursion/aggregator.py", "recursion/circom_interp.py",
             "spec/__init__.py", "spec/gkr_spec.py", "parallel/__init__.py",
-            "parallel/sharding.py"} <= names
+            "parallel/sharding.py", "parallel/multihost.py", "parallel/scaling.py",
+            "recursion/subcircuits.py"} <= names
     assert offenders == []
 
 

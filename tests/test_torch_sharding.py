@@ -62,7 +62,7 @@ def test_make_mesh():
     assert make_mesh(2, devices=["cpu"] * 4) == [CPU] * 2
     with pytest.raises(ValueError, match="power of two"):
         make_mesh(devices=["cpu"] * 3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no initialized default process group"):
         make_mesh(devices=["cpu"] * 2, hosts=2)
     with pytest.raises(ValueError, match="power of two"):
         ShardedSumcheck([CPU] * 6)
