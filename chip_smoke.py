@@ -103,6 +103,20 @@ Phases, each fatal on failure:
      the host engine's; the scaling twin's rows at k = 20 with its
      collective audit (shared rows: no headline on one card) and the
      subcircuits twin at 1, 2 and 4 threads on the card;
+ 15. the native host engine (gkr_tpu_torch.native: csrc/gkrhost.cpp, C++
+     and OpenMP, built by g++ in [2]): the compiler, flags, build seconds,
+     OpenMP threads and host CPU; its batch product and sum, Montgomery
+     conversions, eq table and Moebius transform against the port's Python
+     field and mle on 4,096 values with 0, 1 and p - 1; NativeMimc7
+     against Mimc7 on 1,000 random lists; the bench's 2^20 layer through
+     CppBackend against TorchBackend on the card (proof and challenges
+     equal), timed; prove(synth_circuit(20, 16), CppBackend()) byte-equal
+     to [5]'s proof and accepted by verify (with the native transcript,
+     timed against an explicit Mimc7()); prove-r1cs --backend cpp of
+     [10]'s export equal to its --backend torch proofs, verify exit 0; the
+     2^20 table's sparse form by TorchBackend and by the C++ Moebius
+     (equal, both timed); [8]'s bench line: cpp_gates_per_sec at "2^20"
+     and vs_baseline = value / cpp_gates_per_sec;
 then one JSON line of every kernel with its launches, time and bound.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it.  Imports nothing of jax or gkr_tpu.
@@ -763,7 +777,7 @@ def phase_slice(K, prove, verify, backend, circuit, w, expected):
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     t0 = time.perf_counter()
     ok = verify(proof, circuit)
-    print(f"  host: verify (port verifier, pure Python): "
+    print(f"  host: verify (port verifier): "
           f"{time.perf_counter() - t0:.3f} s -> {ok}", flush=True)
     if not ok:
         raise AssertionError("the port's verifier rejected the 2^20 proof")
@@ -1040,7 +1054,7 @@ def phase_bench(K, bench):
         raise AssertionError(f"bench value {out['value']}")
     if roof is None or not 0 < roof["sol_vs_chip"] <= 1.05:
         raise AssertionError(f"bench roofline {roof} ({out.get('roofline_reason')})")
-    return launches
+    return launches, out
 
 
 def phase_probe_paths(K, probes):
@@ -1622,11 +1636,173 @@ def phase_executors(K, P, tmp: str) -> None:
               + "; ".join(rows), flush=True)
 
 
+NATIVE_VALUES = 4096             # [15]: values the library's entry points are held on
+NATIVE_HASH_LISTS = 1000         # [15]: random lists NativeMimc7 is held on
+
+
+def same_terms(a, b) -> bool:
+    """Two sparse forms hold the same rows (lazy SparseMle compared by their
+    arrays, without materialising 2^20 rows)."""
+    if hasattr(a, "_mon") and hasattr(b, "_mon"):
+        return (np.array_equal(a._mon, b._mon)
+                and np.array_equal(a._limbs, b._limbs))
+    return list(a) == list(b)
+
+
+def phase_native(K, P, verify, circuit, w, proof, bench_line: dict, cli_dir: str,
+                 build_s: float, name_power: str) -> None:
+    """The native host engine (`gkr_tpu_torch.native`): its entry points
+    against the port's Python field and mle, NativeMimc7 against Mimc7,
+    CppBackend against the card on the bench's 2^20 layer and on [5]'s
+    prove, --backend cpp on [10]'s export, verify with the native and the
+    Python transcript, the two Moebius transforms, and [8]'s baseline."""
+    import random
+    from gkr_tpu_torch import TorchBackend, bench, cli, native, prove
+    from gkr_tpu_torch.mimc import Mimc7
+    from gkr_tpu_torch.mle import eq_table, mobius
+    from gkr_tpu_torch.native import engine as E
+
+    L = native.lib()
+    threads = L.gkr_num_threads()
+    cxx = subprocess.run([native.CXX, "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    host = (f"{native.cpu_model()}, {os.cpu_count()} cores, {threads} OpenMP threads "
+            f"(torch.get_num_threads() {torch.get_num_threads()})")
+    print(f"  {cxx}; {' '.join(native.CXX_FLAGS)}; built in [2] in {build_s:.2f} s; "
+          f"host {host}; card {name_power}", flush=True)
+
+    # the entry points against the Python field and mle
+    rng = random.Random(15)
+    edges = [0, 1, 2, P - 2, P - 1]
+    xs = edges + [rng.randrange(P) for _ in range(NATIVE_VALUES - len(edges))]
+    ys = xs[::-1]
+    buf = E._buf
+    a, b = E.ints_to_buf(xs), E.ints_to_buf(ys)
+    out = bytearray(len(a))
+    L.gkr_batch_mul(buf(a), buf(b), buf(out), len(xs))
+    if E.buf_to_ints(out) != [x * y % P for x, y in zip(xs, ys)]:
+        raise AssertionError("gkr_batch_mul differs from the Python field")
+    L.gkr_batch_add(buf(a), buf(b), buf(out), len(xs))
+    if E.buf_to_ints(out) != [(x + y) % P for x, y in zip(xs, ys)]:
+        raise AssertionError("gkr_batch_add differs from the Python field")
+    m = bytearray(a)
+    L.gkr_to_mont(buf(m), len(xs))
+    if E.buf_to_ints(m) != [x * 2 ** 256 % P for x in xs]:
+        raise AssertionError("gkr_to_mont differs from x * 2^256 mod p")
+    L.gkr_from_mont(buf(m), len(xs))
+    if E.buf_to_ints(m) != xs:
+        raise AssertionError("gkr_from_mont does not invert gkr_to_mont")
+    point = xs[:12]
+    z = E.ints_to_buf(point)
+    L.gkr_to_mont(buf(z), len(point))
+    table = bytearray(32 << len(point))
+    L.gkr_eq_table(buf(z), len(point), buf(table))
+    L.gkr_from_mont(buf(table), 1 << len(point))
+    if E.buf_to_ints(table) != eq_table(point):
+        raise AssertionError("gkr_eq_table differs from mle.eq_table")
+    L.gkr_mobius(buf(a), len(xs))
+    if E.buf_to_ints(a) != mobius(xs):
+        raise AssertionError("gkr_mobius differs from mle.mobius")
+    print(f"  gkr_batch_mul, gkr_batch_add, gkr_to_mont / gkr_from_mont, gkr_mobius "
+          f"on {len(xs)} values (0, 1, p - 1 among them) and gkr_eq_table on "
+          f"{len(point)} coordinates: equal to the Python field and mle", flush=True)
+    native_hash, py_hash = E.NativeMimc7(), Mimc7()
+    for _ in range(NATIVE_HASH_LISTS):
+        arr = [rng.choice(edges) if rng.random() < 0.1 else rng.randrange(P)
+               for _ in range(rng.randrange(1, 5))]
+        if native_hash.multi_hash(arr, 0) != py_hash.multi_hash(arr, 0):
+            raise AssertionError(f"NativeMimc7 differs from Mimc7 on {arr}")
+    print(f"  NativeMimc7 equal to Mimc7 on {NATIVE_HASH_LISTS} random lists of 1-4 "
+          "elements", flush=True)
+
+    # the bench's 2^20 layer: C++ against the card
+    k = bench.LAYER_K
+    z, wl, ag, mg, kc, struct = bench.synth_layer(random.Random(1), k)
+    got, dt_cpp = sync_time(lambda: E.CppBackend().layer_sumcheck(
+        z, wl, ag, mg, kc, k, struct, Mimc7()))
+    card = TorchBackend()
+    card.layer_sumcheck(z, wl, ag, mg, kc, k, struct, Mimc7(), layer_idx=1)
+    want, dt_card = sync_time(lambda: card.layer_sumcheck(   # witness, plan cached
+        z, wl, ag, mg, kc, k, struct, Mimc7(), layer_idx=1))
+    if got != want:
+        raise AssertionError("CppBackend's 2^20 layer transcript differs from the card's")
+    print(f"  the bench's 2^{k} layer: CppBackend's {2 * k} round polynomials and "
+          f"challenges equal the card's; C++ {dt_cpp:.3f} s ({(1 << k) / dt_cpp:.1f} "
+          f"gates/s; {host}), card {dt_card:.3f} s (fused, witness packed and plan "
+          f"cached; {name_power}); host clock with a synchronize", flush=True)
+
+    # the full prove of [5]'s circuit on the C++ engine
+    Timed = timed_backend(E.CppBackend)
+    cpp_backend = Timed()
+    cpp_proof, dt_prove = sync_time(lambda: prove(circuit, w, backend=cpp_backend))
+    stages = ", ".join(f"{n} {t:.3f}" for n, t in cpp_backend.seconds.items())
+    if json.dumps(cpp_proof.to_dict()) != json.dumps(proof.to_dict()):
+        raise AssertionError("the C++ proof of synth_circuit(20, 16) differs from [5]'s")
+    print(f"  prove(synth_circuit(20, 16), CppBackend()): {dt_prove:.3f} s ({stages} s; "
+          f"{host}); byte-equal to [5]'s card proof", flush=True)
+    ok, dt_native = sync_time(lambda: verify(cpp_proof, circuit))
+    if not ok:
+        raise AssertionError("verify rejected the C++ proof")
+    ok, dt_python = sync_time(lambda: verify(proof, circuit, transcript=Mimc7()))
+    if not ok:
+        raise AssertionError("verify with an explicit Mimc7() rejected [5]'s proof")
+    print(f"  verify of that proof (= [5]'s): {dt_native:.3f} s with the native "
+          f"transcript, {dt_python:.3f} s with an explicit Mimc7() (host clock)",
+          flush=True)
+
+    # --backend cpp on [10]'s export
+    agg = os.path.join(cli_dir, "aggregated")
+    r1cs, wtns = agg + ".r1cs", agg + ".wtns"
+    cpp_json = os.path.join(cli_dir, "proofs_cpp.json")
+    argv = ["prove-r1cs", "--r1cs", r1cs, "--wtns", wtns, "--backend", "cpp",
+            "-o", cpp_json]
+    print(f"  python -m gkr_tpu_torch {' '.join(argv)}", flush=True)
+    K.reset_launches()
+    (rc, _), dt = sync_time(lambda: run_cli(cli, argv))
+    if rc != 0:
+        raise AssertionError(f"prove-r1cs --backend cpp exited {rc}")
+    with open(cpp_json, "rb") as f, open(os.path.join(cli_dir, "proofs.json"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("prove-r1cs --backend cpp differs from --backend torch")
+    rc, out = run_cli(cli, ["verify", "--proof", cpp_json, "--r1cs", r1cs, "--wtns", wtns])
+    n = check_verify_output(rc, out)
+    print(f"  prove-r1cs --backend cpp: exit 0, {dt:.3f} s, launches {launched(K)}; "
+          f"its proofs.json equals --backend torch's byte for byte; verify: all {n} "
+          "subcircuits OK, exit 0", flush=True)
+
+    # the 2^20 table's sparse form: Moebius on the card against C++
+    table = w[1]
+    card.sparse_from_dense(table)
+    E.sparse_from_dense_native(table)
+    dev, dt_dev = sync_time(lambda: card.sparse_from_dense(table))
+    host_sp, dt_host = sync_time(lambda: E.sparse_from_dense_native(table))
+    if not same_terms(dev, host_sp):
+        raise AssertionError("the card's and the C++ sparse forms of the 2^20 table differ")
+    print(f"  sparse_from_dense of one 2^{len(table).bit_length() - 1} table "
+          f"({len(dev)} terms): TorchBackend {dt_dev:.3f} s ({name_power}), "
+          f"sparse_from_dense_native {dt_host:.3f} s ({host}); equal rows; host "
+          "clock, warm", flush=True)
+
+    # [8]'s bench line
+    cpp_rate = bench_line["cpp_gates_per_sec"]
+    if cpp_rate is None or bench_line["cpp_measured_at"] != f"2^{k}":
+        raise AssertionError(f"bench line: cpp {cpp_rate} at "
+                             f"{bench_line['cpp_measured_at']}")
+    if abs(bench_line["vs_baseline"] - bench_line["value"] / cpp_rate) > 0.0051:
+        raise AssertionError(f"bench vs_baseline {bench_line['vs_baseline']} is not "
+                             f"value / cpp_gates_per_sec")
+    print(f"  [8]'s bench line: cpp_gates_per_sec {cpp_rate} at "
+          f"{bench_line['cpp_measured_at']}, vs_baseline {bench_line['vs_baseline']} "
+          f"= value {bench_line['value']} / cpp_gates_per_sec; baseline "
+          f"'{bench_line['baseline']}'", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from gkr_tpu_torch import TorchBackend, bench, probes, prove, prove_pipelined, verify
+    from gkr_tpu_torch import (TorchBackend, bench, native, probes, prove,
+                               prove_pipelined, verify)
     from gkr_tpu_torch.circuit import synth_circuit
     from gkr_tpu_torch.field import P, R
     from gkr_tpu_torch.mimc import Mimc7
@@ -1651,6 +1827,12 @@ def main() -> int:
     K.library_path().unlink(missing_ok=True)    # built anew, so ptxas reports
     path = K.build()
     print(f"  {path.name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    native.library_path().unlink(missing_ok=True)   # built anew, and timed
+    t0 = time.perf_counter()
+    native.lib()
+    native_build_s = time.perf_counter() - t0
+    print(f"  {native.library_path().name} (g++, the native host engine): "
+          f"{native_build_s:.2f} s", flush=True)
     ptxas = ptxas_report(K.BUILD_LOG)
     for name, props in ptxas.items():
         print(f"  ptxas: {name}:{props}", flush=True)
@@ -1745,16 +1927,16 @@ def main() -> int:
     del backend              # circuit, w and [5]'s proof stay for [12]
 
     print("[8] the port bench: gkr_tpu_torch.bench.main(), k = 20", flush=True)
-    from_probes = phase_bench(K, bench)
+    from_probes, bench_line = phase_bench(K, bench)
 
     print("[9] the probe commands: python -m gkr_tpu_torch.probes micro, tune",
           flush=True)
     from_probes.update(phase_probe_paths(K, probes))
 
-    with tempfile.TemporaryDirectory(prefix="gkr_cli_") as tmp:
-        print("[10] the CLI flow on the card: python -m gkr_tpu_torch prove-native "
-              "(square, weak gadget, 3 inputs), prove-r1cs, verify", flush=True)
-        phase_cli_flow(K, P, tmp)
+    cli_dir = tempfile.TemporaryDirectory(prefix="gkr_cli_")    # [15] reads it too
+    print("[10] the CLI flow on the card: python -m gkr_tpu_torch prove-native "
+          "(square, weak gadget, 3 inputs), prove-r1cs, verify", flush=True)
+    phase_cli_flow(K, P, cli_dir.name)
     with tempfile.TemporaryDirectory(prefix="gkr_agg_") as tmp:
         print("[11] the full-strength aggregation: prove-native --example mimc "
               "--backend torch --export agg over examples/mimc/input1, input2; "
@@ -1765,7 +1947,6 @@ def main() -> int:
           "--backend sharded --devices D (ShardedBackend(make_mesh(devices=[cuda:0] "
           "* D))) through prove_subcircuits, D = 2 and 8", flush=True)
     sharded_warm = phase_sharded(K, P, verify, circuit, w, proof, wall_warm, name_power)
-    del w
     with tempfile.TemporaryDirectory(prefix="gkr_exec_") as tmp:
         print("[13] the executors on card proofs: the interpreter (VerifyGKR, "
               "VerifyGKRStrongFS) and verify_gkr_gadget, honest and tampered", flush=True)
@@ -1777,7 +1958,13 @@ def main() -> int:
               "subcircuits twins", flush=True)
         phase_multihost(P, verify, circuit, proof, wall_warm, sharded_warm, name_power,
                         tmp)
-    del circuit, proof
+    print("[15] the native host engine: gkr_tpu_torch.native (csrc/gkrhost.cpp, "
+          "C++ and OpenMP), CppBackend against the card, --backend cpp, the "
+          "native transcript and Moebius, the bench's C++ baseline", flush=True)
+    phase_native(K, P, verify, circuit, w, proof, bench_line, cli_dir.name,
+                 native_build_s, name_power)
+    cli_dir.cleanup()
+    del circuit, w, proof
 
     for row in rows:
         src = (per_round if row["name"] in LAUNCHES_FROM_PER_ROUND

@@ -9,7 +9,9 @@ hand-written CUDA kernels (`torcheng/`, `csrc/`).  The host modules
 `recursion/`: native and circom-path aggregation; `cli`, run as
 `python -m gkr_tpu_torch`; `spec/`, the readable spec prover) are this
 package's own copies; `parallel/` runs each layer sumcheck over D shards
-(`ShardedBackend`).  It imports neither `jax` nor `gkr_tpu`.
+(`ShardedBackend`); `native/` is the C++ host engine (`CppBackend`, the
+native MiMC7-91), built from `csrc/gkrhost.cpp` at first use.  It imports
+neither `jax` nor `gkr_tpu`.
 """
 
 from .circuit import GateLayer, GKRCircuit, get_k

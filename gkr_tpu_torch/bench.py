@@ -18,9 +18,14 @@ under `extra.aggregation_e2e`.  The fields:
 
   metric / value / unit    fused engine, gates/s of one 2^k-gate layer, steady
                            state (witness packed, wiring plan cached)
-  vs_baseline              value / host_py_gates_per_sec: the port has no
-                           C++ engine, so the baseline is the host Python
-                           engine at 2^HOST_K (12); cpp_* are null
+  vs_baseline              value / cpp_gates_per_sec: the baseline is the
+                           native C++ host engine (`native.CppBackend`, its
+                           OpenMP threads as torch's setting leaves them) on
+                           the same 2^LAYER_K layer, one warm call and one
+                           timed (`run_cpp`, bench.py's); cpp_measured_at
+                           says the size.  A C++ engine that fails to
+                           build fails the bench
+  host_py_gates_per_sec    the host Python engine at 2^HOST_K (12)
   pipelined_*              a batch of 6 instances of the layer with one
                            download for the batch; per-layer amortised ms
   layer_ms, sumcheck_rounds_per_sec, fr_mle_evals_per_sec, mont_mul_per_sec
@@ -73,6 +78,8 @@ from .examples import mimc_example
 from .field import P
 from .mimc import Mimc7
 from .mle import MleStruct
+from .native import lib as native_lib
+from .native.engine import CppBackend
 from .prover import prove
 from .recursion import aggregator, native
 from .sumcheck import prove_layer_sumcheck, round_poly_len
@@ -87,7 +94,7 @@ HBM_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
 SOL_LIMIT = 1.05                 # sol_vs_chip above this is an impossible reading
 PIPELINE_BATCH = 6
 LAYER_K = 20                     # the headline layer: 2^LAYER_K gates
-HOST_K = 12                      # the host engine's layer (the baseline)
+HOST_K = 12                      # the host Python engine's layer
 FULL_K, FULL_KIN = 20, 16        # extra.full_prove: 2^20-gate layers, 2^16 inputs
 TOP_K = 24                       # extra's largest layer
 
@@ -199,6 +206,18 @@ def run_host(k: int) -> float:
     z, w, ag, mg, kc, struct = synth_layer(rng, k)
     t0 = time.perf_counter()
     prove_layer_sumcheck(z, w, ag, mg, kc, k, struct, Mimc7())
+    return (len(ag) + len(mg)) / (time.perf_counter() - t0)
+
+
+def run_cpp(k: int) -> float:
+    """Gates/s of the native C++ host engine on bench.py's 2^k layer: one
+    warm call, then one timed (bench.py's `run_cpp`)."""
+    backend = CppBackend()
+    rng = random.Random(1)
+    z, w, ag, mg, kc, struct = synth_layer(rng, k)
+    backend.layer_sumcheck(z, w, ag, mg, kc, k, struct, Mimc7())   # warm
+    t0 = time.perf_counter()
+    backend.layer_sumcheck(z, w, ag, mg, kc, k, struct, Mimc7())
     return (len(ag) + len(mg)) / (time.perf_counter() - t0)
 
 
@@ -478,6 +497,7 @@ def main() -> dict:
     dt, b1, b2 = run_device(k)
     device_rate = n / dt
     peak = run_kernel_peak()
+    cpp_rate = run_cpp(k)
     host_rate = run_host(host_k)
     entries, mont_muls = work(n)
     roof, reason = roofline(dt, n, mont_muls)
@@ -485,12 +505,13 @@ def main() -> dict:
     pipe_rate, pipe_layer_s = run_device_pipelined(k)
     out.update({
         "value": round(device_rate, 1),
-        "vs_baseline": round(device_rate / host_rate, 2),
-        "baseline": f"host Python engine at 2^{host_k} (the port has no C++ engine)",
+        "vs_baseline": round(device_rate / cpp_rate, 2),
+        "baseline": (f"C++ host engine (native.CppBackend) at 2^{k}, "
+                     f"{native_lib().gkr_num_threads()} OpenMP threads"),
         "pipelined_gates_per_sec": round(pipe_rate, 1),
         "pipelined_layer_ms": round(pipe_layer_s * 1e3, 2),
-        "cpp_gates_per_sec": None,
-        "cpp_measured_at": None,
+        "cpp_gates_per_sec": round(cpp_rate, 1),
+        "cpp_measured_at": f"2^{k}",
         "host_cpus": os.cpu_count(),
         "sync_rtt_ms": round(rtt * 1e3, 4),
         "host_py_gates_per_sec": round(host_rate, 1),

@@ -13,7 +13,10 @@ Extensions:
 one; --backend sharded proves each layer sumcheck over D shards
 (`parallel.ShardedBackend`: every visible card, or --devices N shards taking
 the cards in turn; --device cpu puts the shards on the CPU instead);
---backend host proves with the exact host engine (Python ints).
+--backend host proves with the exact host engine (Python ints);
+--backend cpp with the native host engine (`native.CppBackend`: the layer
+sumcheck in C++ and OpenMP, built by g++ at first use), one backend a
+thread, 8 threads by default.
 """
 
 from __future__ import annotations
@@ -24,10 +27,11 @@ import sys
 from functools import partial
 
 
-BACKENDS = ("torch", "host", "sharded")
+BACKENDS = ("torch", "host", "sharded", "cpp")
 WORKERS_HELP = ("subcircuit prove parallelism: threads on the card (default "
-                "1) or host processes (default 8; the reference's rayon "
-                "par_iter analog)")
+                "1), host processes (--backend host, default 8) or host "
+                "threads (--backend cpp, default 8; 1: one shared backend); "
+                "the reference's rayon par_iter analog")
 DEVICE_HELP = ("--backend sharded: where the shards prove, cuda (the default: "
                "every visible card; fails without one) or cpu")
 DEVICES_HELP = ("--backend sharded: the number of shards D, a power of two "
@@ -48,7 +52,8 @@ def _add_backend_args(p, workers: bool = True) -> None:
 def _backend_factory(args):
     """A zero-arg constructor for --backend: TorchBackend (the card),
     ShardedBackend over `make_mesh` on --device (its D and devices printed
-    once, to stderr) or the pure-Python HostBackend."""
+    once, to stderr), the native CppBackend or the pure-Python
+    HostBackend."""
     if args.backend == "torch":
         from .torcheng.backend import TorchBackend
         return TorchBackend
@@ -59,6 +64,9 @@ def _backend_factory(args):
         print(f"sharded backend: D = {len(mesh)} shards on "
               + ", ".join(str(d) for d in distinct(mesh)), file=sys.stderr)
         return partial(ShardedBackend, mesh)
+    if args.backend == "cpp":
+        from .native.engine import CppBackend
+        return CppBackend
     from .prover import HostBackend
     return HostBackend
 
@@ -71,11 +79,13 @@ def _backend_args(args) -> dict:
     --workers N > 1 gives each of N threads its own backend through a
     backend_factory.  --backend host passes one HostBackend, which takes
     the spawn process pool inside prove_subcircuits, 8 workers by default
-    (the reference's rayon par_iter, aggregator.rs:411-416)."""
+    (the reference's rayon par_iter, aggregator.rs:411-416).  --backend cpp
+    is the reference's: 8 threads by default, each with its own
+    CppBackend, and --workers 1 one shared backend."""
     factory = _backend_factory(args)
     if args.backend == "host":
         return {"backend": factory(), "max_workers": args.workers or 8}
-    workers = args.workers or 1
+    workers = args.workers or (8 if args.backend == "cpp" else 1)
     if workers <= 1:
         return {"backend": factory(), "max_workers": 1}
     return {"backend_factory": factory, "max_workers": workers}

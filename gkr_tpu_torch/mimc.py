@@ -27,6 +27,7 @@ the Rust/circom (iden3) scheme.
 
 from __future__ import annotations
 
+import threading
 from functools import lru_cache
 
 from .field import P
@@ -76,6 +77,32 @@ class Mimc7:
             x = x % P
             r = (r + x + self.hash(x, r)) % P
         return r
+
+
+_FAST_MIMC: list = []
+_FAST_MIMC_LOCK = threading.Lock()
+
+
+def fast_transcript(transcript: "Mimc7"):
+    """The native MiMC7-91 (`native.engine.NativeMimc7`, the same
+    transcripts) for host-side transcript hashing: the re-hash of every
+    round in verification and in the device engines' host checks.
+
+    Swapped only for an exact `Mimc7` (not a subclass: tests model forged
+    challenge schedules with them) of 91 rounds (the library's constant
+    table is MiMC7-91's); any other transcript is returned as given, as it
+    is under GKR_NO_NATIVE=1.  A library that fails to build raises."""
+    if type(transcript) is not Mimc7 or transcript.n_rounds != DEFAULT_ROUNDS:
+        return transcript
+    from .native import lib
+    if lib() is None:
+        return transcript
+    if not _FAST_MIMC:
+        with _FAST_MIMC_LOCK:
+            if not _FAST_MIMC:
+                from .native.engine import NativeMimc7
+                _FAST_MIMC.append(NativeMimc7())
+    return _FAST_MIMC[0]
 
 
 @lru_cache(maxsize=None)

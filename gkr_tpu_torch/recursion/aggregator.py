@@ -81,8 +81,8 @@ def prove_subcircuits(circuits, w_values_list, backend=None,
     """Prove all subcircuits of one aggregation round — the rayon par_iter
     analog (rust/src/aggregator.rs:350-355).  See MAX_PROVE_WORKERS note
     for the pool-kind rationale.  No backend means the card
-    (TorchBackend()), one subcircuit after another; a HostBackend takes the
-    spawn process pool above PROCESS_MIN_GATES.  The CLI reaches this
+    (TorchBackend()), one subcircuit after another; a plain HostBackend
+    takes the spawn process pool above PROCESS_MIN_GATES.  The CLI reaches this
     parallelism via --backend/--workers (cli._backend_args builds a
     backend_factory for --backend torch --workers N > 1)."""
 
@@ -101,10 +101,10 @@ def prove_subcircuits(circuits, w_values_list, backend=None,
     if backend_factory is not None:
         with ThreadPoolExecutor(max_workers=workers) as pool:
             return list(pool.map(prove_one, range(nsub)))
-    if not isinstance(backend, HostBackend):
+    if type(backend) is not HostBackend:
         # the card (None: TorchBackend()) or one shared stateful backend
-        # instance, not safe to share across threads; sequential (pass
-        # backend_factory to parallelize)
+        # instance (a CppBackend too), not safe to share across threads;
+        # sequential (pass backend_factory to parallelize)
         return [prove_one(i) for i in range(nsub)]
     total = sum(sum(layer.n_gates() for layer in c.layers)
                 for c in circuits)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..field import interpolate
-from ..mimc import Mimc7
+from ..mimc import Mimc7, fast_transcript
 from ..mle import (MleStruct, SparseMle, line, mle_struct, restrict_to_line,
                    sparse_from_dense)
 from ..proof import Proof
@@ -256,6 +256,7 @@ def prove_pipelined(circuit, w_values, transcript: Mimc7 | None = None,
         per_layer.append((arrays, extra, finish))
 
     # one download for the whole proof, then the host's checks
+    hasher = fast_transcript(transcript)
     host = iter(download([a for arrays, extra, _ in per_layer
                           for a in (*arrays, *extra)]))
     z_chain = [z0_host]
@@ -264,7 +265,7 @@ def prove_pipelined(circuit, w_values, transcript: Mimc7 | None = None,
         proof_i, chal_i = finish(tuple(next(host) for _ in arrays))
         r_dev, z_next_dev = next(host), next(host)
         k_next = circuit.k(i + 1)
-        r_star = transcript.multi_hash(proof_i[-1], 0)
+        r_star = hasher.multi_hash(proof_i[-1], 0)
         if r_star != L.unpack_scalar(r_dev):
             raise RuntimeError(f"device/host Fiat-Shamir divergence at layer {i} r*")
         z_next = line(chal_i[:k_next], chal_i[k_next:], r_star)

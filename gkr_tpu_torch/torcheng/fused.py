@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..mimc import Mimc7
+from ..mimc import Mimc7, fast_transcript
 from ..mle import MleStruct
 from ..sumcheck import round_poly_len, shape_coeffs
 from . import kernels as K
@@ -198,8 +198,10 @@ def check_transcript(coeffs: torch.Tensor, rs: torch.Tensor, sched,
                      transcript: Mimc7):
     """A layer's downloaded (v, 3, 16) coefficients and (v, 16) challenges
     -> (proof, challenges): each round's coefficients cut to its length,
-    re-hashed by the host's MiMC7; RuntimeError on the first challenge the
+    re-hashed by the host's MiMC7 (the native hash for a plain `Mimc7`,
+    `mimc.fast_transcript`); RuntimeError on the first challenge the
     device got otherwise."""
+    hasher = fast_transcript(transcript)
     flat = L.unpack(coeffs.reshape(-1, 16))
     rs_device = L.unpack(rs)
     proof: list[list[int]] = []
@@ -207,7 +209,7 @@ def check_transcript(coeffs: torch.Tensor, rs: torch.Tensor, sched,
     for j in range(1, len(sched) + 1):
         c = shape_coeffs(flat[3 * (j - 1):3 * j], sched[j - 1])
         proof.append(c)
-        r = transcript.multi_hash(c, 0)
+        r = hasher.multi_hash(c, 0)
         if r != rs_device[j - 1]:
             raise RuntimeError(f"device/host Fiat-Shamir divergence at round {j}")
         challenges.append(r)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 from .circuit import GKRCircuit
 from .field import P, eval_univariate
-from .mimc import Mimc7
+from .mimc import Mimc7, fast_transcript
 from .mle import line, sparse_eval
 from .proof import Proof
 from .sumcheck import verify_sumcheck
@@ -40,7 +40,10 @@ def verify(proof: Proof, circuit: GKRCircuit | None = None,
            transcript: Mimc7 | None = None,
            raise_on_fail: bool = False) -> bool:
     if transcript is None:
-        transcript = Mimc7()
+        # verification re-hashes every round: the default transcript takes
+        # the native MiMC (the same hashes); an explicit one is used as
+        # given
+        transcript = fast_transcript(Mimc7())
     try:
         _verify(proof, circuit, transcript)
         return True

@@ -111,6 +111,7 @@ def test_extras_are_printed_before_the_aggregation_cell(monkeypatch, capsys, cel
     monkeypatch.setattr(B, "run_device", lambda k, breakdown=True: (1e-3 * k, 1e-4, 1e-4))
     monkeypatch.setattr(B, "run_kernel_peak", lambda: 1e9)
     monkeypatch.setattr(B, "run_host", lambda k: 1e3)
+    monkeypatch.setattr(B, "run_cpp", lambda k: 1e4)
     monkeypatch.setattr(B, "roofline", lambda dt, n, muls: (None, "stubbed"))
     monkeypatch.setattr(B, "sync_rtt_s", lambda: 1e-5)
     monkeypatch.setattr(B, "run_device_pipelined", lambda k: (1e6, 1e-2))
@@ -142,6 +143,37 @@ def test_extras_are_printed_before_the_aggregation_cell(monkeypatch, capsys, cel
         assert len(rest) == 1
         second = json.loads(rest[0])
         assert second["extra"] == {**extra, "aggregation_e2e": {"total_s": 9.0}}
+
+
+def test_the_baseline_is_the_cpp_engine_at_the_headline_size(monkeypatch):
+    """vs_baseline is value / cpp_gates_per_sec, the C++ engine measured on
+    the same 2^20 layer (bench.py's `run_cpp`); the host Python engine stays
+    as host_py_gates_per_sec.  The device is stubbed; run_cpp runs for real
+    on a 2^8 layer."""
+    assert B.run_cpp(8) > 0
+    cpp_sizes = []
+
+    def run_cpp(k):
+        cpp_sizes.append(k)
+        return 4.5e5
+
+    monkeypatch.delenv("GKR_BENCH_EXTRA", raising=False)
+    monkeypatch.setattr(B.probes, "require_card", lambda: None)
+    monkeypatch.setattr(B, "run_device", lambda k, breakdown=True: (2e-2, 1e-3, 1e-3))
+    monkeypatch.setattr(B, "run_kernel_peak", lambda: 1e9)
+    monkeypatch.setattr(B, "run_host", lambda k: 1e3)
+    monkeypatch.setattr(B, "run_cpp", run_cpp)
+    monkeypatch.setattr(B, "roofline", lambda dt, n, muls: (None, "stubbed"))
+    monkeypatch.setattr(B, "sync_rtt_s", lambda: 1e-5)
+    monkeypatch.setattr(B, "run_device_pipelined", lambda k: (1e6, 1e-2))
+    monkeypatch.setattr(B, "card_label", lambda: "stub card")
+    out = B.main()
+    assert cpp_sizes == [B.LAYER_K] == [20]
+    assert out["cpp_measured_at"] == "2^20" and out["cpp_gates_per_sec"] == 4.5e5
+    assert out["value"] == round((1 << 20) / 2e-2, 1)
+    assert out["vs_baseline"] == round(out["value"] / 4.5e5, 2)
+    assert out["baseline"].startswith("C++ host engine") and "2^20" in out["baseline"]
+    assert out["host_py_gates_per_sec"] == 1e3
 
 
 # ----------------------------------------------------------------- probes

@@ -206,7 +206,7 @@ def test_cli_has_the_five_subcommands():
     parser_help = io.StringIO()
     with contextlib.redirect_stdout(parser_help), pytest.raises(SystemExit):
         cli.main(["prove-r1cs", "--help"])
-    assert "{torch,host,sharded}" in parser_help.getvalue()
+    assert "{torch,host,sharded,cpp}" in parser_help.getvalue()
     for cmd in ("prove", "mock-groth", "prove-r1cs", "verify", "prove-native"):
         with contextlib.redirect_stdout(io.StringIO()), pytest.raises(SystemExit) as ex:
             cli.main([cmd, "--help"])
@@ -247,6 +247,29 @@ def test_cli_prove_r1cs_and_verify_match_gkr_tpu(tmp_path):
     assert text.splitlines()[0] == "subcircuit 0: FAIL"
 
 
+def test_cli_prove_r1cs_cpp_matches_gkr_tpu_cpp(tmp_path):
+    """`python -m gkr_tpu_torch prove-r1cs --backend cpp` (8 threads, a
+    CppBackend each) writes the bytes of `python -m gkr_tpu prove-r1cs
+    --backend cpp`, and both packages' `verify` exit 0 on them."""
+    out, ref = tmp_path / "proofs.json", tmp_path / "ref.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, "-m", "gkr_tpu_torch", "prove-r1cs",
+                          "--r1cs", R1CS, "--wtns", WTNS, "--sym", SYM,
+                          "--backend", "cpp", "-o", str(out)],
+                         cwd=tmp_path, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    rc, _ = run_cli(jax_cli.main, ["prove-r1cs", "--r1cs", R1CS, "--wtns", WTNS,
+                                   "--sym", SYM, "--backend", "cpp", "-o", str(ref)])
+    assert rc == 0
+    assert out.read_bytes() == ref.read_bytes()
+    for main in (cli.main, jax_cli.main):
+        rc, text = run_cli(main, ["verify", "--proof", str(out), "--r1cs", R1CS,
+                                  "--wtns", WTNS])
+        lines = text.splitlines()
+        assert rc == 0 and len(lines) == 12 and all(l.endswith(": OK") for l in lines)
+
+
 def test_cli_proves_on_the_card_one_subcircuit_after_another(monkeypatch):
     """--backend torch takes one backend and no pool unless --workers asks
     for threads; --backend host takes one HostBackend and 8 processes."""
@@ -260,6 +283,9 @@ def test_cli_proves_on_the_card_one_subcircuit_after_another(monkeypatch):
     assert threads["max_workers"] == 4 and threads["backend_factory"]() == "torch"
     assert cli._backend_args(args("host", None)) == {"backend": "host", "max_workers": 8}
     assert cli._backend_args(args("host", 2)) == {"backend": "host", "max_workers": 2}
+    cpp = cli._backend_args(args("cpp", None))      # the reference's threads
+    assert cpp["max_workers"] == 8 and cpp["backend_factory"]() == "cpp"
+    assert cli._backend_args(args("cpp", 1)) == {"backend": "cpp", "max_workers": 1}
 
 
 def test_cli_backend_torch_without_a_card_fails(tmp_path):
