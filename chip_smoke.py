@@ -137,6 +137,7 @@ import warnings
 import numpy as np
 import torch
 
+from gkr_tpu_torch import tracing
 from gkr_tpu_torch.probes import (FP32_PER_SM_CLOCK, IMAD_PER_SM_CLOCK, check_bound,
                                   event_ms, max_sm_clock_hz, peak_clock_hz,
                                   peak_per_s, queued_ms, spin_clock_hz)
@@ -234,35 +235,20 @@ def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> float:
     return float((x.to(torch.int64) - y.to(torch.int64)).abs().max().item())
 
 
-# ------------------------------------------------------------ stage timer
+# ------------------------------------------------------------ stage seconds
 
-def timed_backend(TorchBackend):
-    class StageTimedBackend(TorchBackend):
-        """TorchBackend whose prover-interface calls are timed on the host
-        clock, each ending in a device synchronize."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.seconds: dict[str, float] = {}
-
-        def _timed(self, name, fn, *a, **kw):
-            out, dt = sync_time(lambda: fn(*a, **kw))
-            self.seconds[name] = self.seconds.get(name, 0.0) + dt
-            return out
-
-        def mle_struct(self, *a, **kw):
-            return self._timed("mle_struct (incl. pack)", super().mle_struct, *a, **kw)
-
-        def layer_sumcheck(self, *a, **kw):
-            return self._timed("layer_sumcheck", super().layer_sumcheck, *a, **kw)
-
-        def restrict_to_line(self, *a, **kw):
-            return self._timed("restrict_to_line", super().restrict_to_line, *a, **kw)
-
-        def sparse_from_dense(self, *a, **kw):
-            return self._timed("sparse_from_dense", super().sparse_from_dense, *a, **kw)
-
-    return StageTimedBackend
+def stage_time(fn):
+    """fn() under `tracing.enable()` -> (its result, its host-clock seconds
+    ending in a synchronize, the seconds of each `backend.*` span: the
+    prover's calls into its backend, each of which ends in a host read)."""
+    tracing.reset()
+    tracing.enable()
+    try:
+        out, dt = sync_time(fn)
+    finally:
+        tracing.disable()
+    return out, dt, {name: t.seconds for name, t in tracing.totals().items()
+                     if name.startswith("backend.")}
 
 
 # ------------------------------------------------------------------ phases
@@ -767,10 +753,10 @@ def phase_slice(K, prove, verify, backend, circuit, w, expected):
     after; the port's verify; the counts against `expected`."""
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    proof, dt = sync_time(lambda: prove(circuit, w, backend=backend))
+    proof, dt, stages = stage_time(lambda: prove(circuit, w, backend=backend))
     launches = dict(K.LAUNCHES)
     print(f"  prove (device stages, host clock with sync): {dt:.3f} s", flush=True)
-    for name, sec in backend.seconds.items():
+    for name, sec in stages.items():
         print(f"    {name}: {sec:.3f} s", flush=True)
     print(f"  launches in this prove: {launches}", flush=True)
     print(f"  torch.cuda.max_memory_allocated: "
@@ -793,10 +779,11 @@ def phase_profile(prove, make_backend, circuit, w, wall_s):
     """Device time by kernel over one more prove, under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    spans = ("sumcheck.", "fused.")
     torch.cuda.synchronize()
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, prof_wall = sync_time(lambda: prove(circuit, w, backend=make_backend()))
+    spans = tracing.totals()          # the program's spans, recorded with it
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -805,10 +792,10 @@ def phase_profile(prove, make_backend, circuit, w, wall_s):
     from torch.autograd import DeviceType
 
     # device-side events only: kernels and copies, not the CPU ops that
-    # launched them nor the GPU ranges of the layer engines' spans
+    # launched them nor the GPU ranges of the program's spans
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == DeviceType.CUDA
-              and dev_us(e) > 0 and not e.key.startswith(spans)]
+              and dev_us(e) > 0 and e.key not in spans]
     total_s = sum(dev_us(e) for e in events) / 1e6
     if total_s == 0:
         print("  profiler: no device time recorded (busy share not measured)",
@@ -820,13 +807,10 @@ def phase_profile(prove, make_backend, circuit, w, wall_s):
     for e in sorted(events, key=dev_us, reverse=True):
         print(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:70]}",
               flush=True)
-    print("  layer sumcheck stages (host clock, all layers, profiler on):",
+    print("  the program's spans (host clock, inclusive, profiler on):",
           flush=True)
-    for e in prof.key_averages():
-        if (e.key.startswith(spans)
-                and getattr(e, "device_type", None) == DeviceType.CPU):
-            print(f"    {e.cpu_time_total / 1e3:9.3f} ms  {e.count:3d} x  {e.key}",
-                  flush=True)
+    for name, t in spans.items():
+        print(f"    {t.seconds * 1e3:9.3f} ms  {t.calls:3d} x  {name}", flush=True)
     return {e.key: (dev_us(e) / 1e3, e.count) for e in events}
 
 
@@ -1732,10 +1716,10 @@ def phase_native(K, P, verify, circuit, w, proof, bench_line: dict, cli_dir: str
           f"cached; {name_power}); host clock with a synchronize", flush=True)
 
     # the full prove of [5]'s circuit on the C++ engine
-    Timed = timed_backend(E.CppBackend)
-    cpp_backend = Timed()
-    cpp_proof, dt_prove = sync_time(lambda: prove(circuit, w, backend=cpp_backend))
-    stages = ", ".join(f"{n} {t:.3f}" for n, t in cpp_backend.seconds.items())
+    cpp_backend = E.CppBackend()
+    cpp_proof, dt_prove, stages = stage_time(
+        lambda: prove(circuit, w, backend=cpp_backend))
+    stages = ", ".join(f"{n} {t:.3f}" for n, t in stages.items())
     if json.dumps(cpp_proof.to_dict()) != json.dumps(proof.to_dict()):
         raise AssertionError("the C++ proof of synth_circuit(20, 16) differs from [5]'s")
     print(f"  prove(synth_circuit(20, 16), CppBackend()): {dt_prove:.3f} s ({stages} s; "
@@ -1884,10 +1868,9 @@ def main() -> int:
     phase_fused_kernels(K, L, F, P, R, Mimc7, record, bound, circuit)
     phase_probe_kernels(K, L, probes, P, R, record, imad_rate, fp32_rate, sass)
 
-    Timed = timed_backend(TorchBackend)
     print("[4] per-round slice: prove(synth_circuit(20, 16), "
           "TorchBackend(fused=False))", flush=True)
-    per_round, _, wall_pr = phase_slice(K, prove, verify, Timed(fused=False),
+    per_round, _, wall_pr = phase_slice(K, prove, verify, TorchBackend(fused=False),
                                         circuit, w, EXPECTED_PER_ROUND)
     print("[4b] where the per-round prove's device time goes (torch.profiler)",
           flush=True)
@@ -1895,16 +1878,15 @@ def main() -> int:
 
     print("[5] fused slice: prove(synth_circuit(20, 16), TorchBackend())",
           flush=True)
-    backend = Timed()
+    backend = TorchBackend()
     fused, proof, wall_f = phase_slice(K, prove, verify, backend, circuit, w,
                                        EXPECTED_FUSED)
-    backend.seconds = {}
-    again, wall_warm = sync_time(lambda: prove(circuit, w, backend=backend))
+    again, wall_warm, stages = stage_time(lambda: prove(circuit, w, backend=backend))
     if again != proof:
         raise AssertionError("a second fused proof of the circuit differs")
     print(f"  second prove, same backend (wiring plans cached): {wall_warm:.3f} s",
           flush=True)
-    for name, sec in backend.seconds.items():
+    for name, sec in stages.items():
         print(f"    {name}: {sec:.3f} s", flush=True)
     print("[5b] where the fused prove's device time goes, plans cached "
           "(torch.profiler)", flush=True)

@@ -72,7 +72,7 @@ from pathlib import Path
 
 import torch
 
-from . import probes
+from . import probes, tracing
 from .circuit import GateLayer, GKRCircuit
 from .examples import mimc_example
 from .field import P
@@ -289,63 +289,39 @@ def run_device_pipelined(k: int, batch: int = PIPELINE_BATCH, device="cuda"):
     return batch * n / best, best / batch
 
 
-class _TimedBackend:
-    """Per-stage host-clock timing around a prover backend, each stage
-    ending in a device synchronize."""
-
-    def __init__(self, inner: TorchBackend):
-        self.inner = inner
-        self.t: dict[str, float] = {}
-
-    def reset_cache(self):
-        self.inner.reset_cache()
-
-    def _timed(self, name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        r = fn(*a, **kw)
-        _sync(self.inner.device)
-        self.t[name] = self.t.get(name, 0.0) + (time.perf_counter() - t0)
-        return r
-
-    def mle_struct(self, *a, **kw):
-        return self._timed("mle_struct", self.inner.mle_struct, *a, **kw)
-
-    def layer_sumcheck(self, *a, **kw):
-        return self._timed("sumcheck", self.inner.layer_sumcheck, *a, **kw)
-
-    def restrict_to_line(self, *a, **kw):
-        return self._timed("restrict_to_line", self.inner.restrict_to_line, *a, **kw)
-
-    def sparse_from_dense(self, *a, **kw):
-        return self._timed("sparse_from_dense", self.inner.sparse_from_dense, *a, **kw)
-
-
 def run_full_prove(k: int, k_input: int = 16, device="cuda"):
     """`prove()` of bench.py's circuit (after one warm-up proof that builds
     the wiring plans), the port's verify of it, and `prove_pipelined` of the
     same circuit, whose proof must equal it.  Returns (total gates, prove
-    seconds, per-stage seconds, verify seconds, pipelined seconds)."""
+    seconds, the seconds of each `backend.*` span of the prove, verify
+    seconds, pipelined seconds)."""
     rng = random.Random(7)
     circuit = synth_circuit(rng, k, k_input)
     inputs = [rng.randrange(P) for _ in range(1 << k_input)]
     w = circuit.evaluate(inputs)
-    backend = _TimedBackend(TorchBackend(device=device))
+    backend = TorchBackend(device=device)
     prove(circuit, w, backend=backend)          # warm-up: wiring plans
-    backend.t.clear()
-    t0 = time.perf_counter()
-    proof = prove(circuit, w, backend=backend)
-    dt = time.perf_counter() - t0
+    tracing.reset()
+    tracing.enable()
+    try:
+        t0 = time.perf_counter()
+        proof = prove(circuit, w, backend=backend)
+        dt = time.perf_counter() - t0
+    finally:
+        tracing.disable()
+    stages = {name: t.seconds for name, t in tracing.totals().items()
+              if name.startswith("backend.")}
     t1 = time.perf_counter()
     if not verify(proof, circuit):
         raise RuntimeError("full-prove self-verification failed")
     verify_s = time.perf_counter() - t1
     t2 = time.perf_counter()
-    p2 = prove_pipelined(circuit, w, backend=backend.inner)
+    p2 = prove_pipelined(circuit, w, backend=backend)
     pipe_s = time.perf_counter() - t2
     if p2 != proof:     # equal to a verified proof: it verifies too
         raise RuntimeError("the pipelined proof differs from prove()'s")
     gates = sum(layer.n_gates() for layer in circuit.layers)
-    return gates, dt, dict(backend.t), verify_s, pipe_s
+    return gates, dt, stages, verify_s, pipe_s
 
 
 STAGES = ("gadget build", "compile", "prove", "self-verify")

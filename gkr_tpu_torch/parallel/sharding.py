@@ -67,8 +67,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
+from .. import tracing
 from ..mimc import Mimc7
 from ..mle import MleStruct
 from ..sumcheck import prove_layer_sumcheck
@@ -201,7 +201,7 @@ def shard_plans(add_gates, mult_gates, n: int, mesh) -> list[F.LayerWiring]:
     else:
         D, first = len(mesh), 0
     rows = n // D
-    with record_function("sharded.wiring_plan"):
+    with tracing.span("sharded.wiring_plan"):
         cols = [F.gate_columns(g) if g else None for g in (add_gates, mult_gates)]
         plans = []
         for i, device in enumerate(local_devices(mesh)):
@@ -311,7 +311,7 @@ class ShardedSumcheck:
             self._plans, layer_idx, add_gates, mult_gates, n, make)
         z_dev = L.pack(z, lead).reshape(-1, 16)
 
-        with record_function("sharded.build_phase1"):
+        with tracing.span("sharded.build_phase1"):
             w_on, eqz_on = {}, {}
             for d in distinct(self.local):
                 w_on[d] = w_dev.to(d, non_blocking=True)
@@ -321,10 +321,10 @@ class ShardedSumcheck:
                       for i, d in enumerate(self.local)]
             S1 = [K.stack([w_rows[i], *F.phase1_tables(w_on[d], eqz_on[d], plans[i])])
                   for i, d in enumerate(self.local)]
-        with record_function("sharded.phase1_rounds"):
+        with tracing.span("sharded.phase1_rounds"):
             fin1, co1, rs1 = self._rounds(S1, sched[:k])
         del S1
-        with record_function("sharded.build_phase2"):
+        with tracing.span("sharded.build_phase2"):
             wb_on, eq_on, S2 = {}, {}, []
             for d in distinct(self.local):
                 wb_on[d] = fin1[0, 0].to(d, non_blocking=True)
@@ -340,9 +340,9 @@ class ShardedSumcheck:
                 S2.append(K.stack([w_rows[i], *F.phase2_tables(
                     eqz_on[d], eqb_at, wb_on[d], plans[i])]))
             del eqz_on, eq_on
-        with record_function("sharded.phase2_rounds"):
+        with tracing.span("sharded.phase2_rounds"):
             _, co2, rs2 = self._rounds(S2, sched[k:], wb_on)
-        with record_function("sharded.download_and_check"):
+        with tracing.span("sharded.download_and_check"):
             h = F.download((co1, co2, rs1, rs2))
             if self.hosts is not None:
                 self._agree(h[2:])

@@ -11,11 +11,13 @@ Mirrors `rust/src/gkr/prover.rs:6-96` exactly at the protocol level:
 
 The compute backend is pluggable: `TorchBackend` (tables on the CUDA card —
 the default) or `HostBackend` (exact Python ints, only when passed
-explicitly).  Both produce byte-identical transcripts.
+explicitly).  Both produce byte-identical transcripts.  Each call into the
+backend runs under a `backend.<method>` span (`tracing`).
 """
 
 from __future__ import annotations
 
+from . import tracing
 from .circuit import GKRCircuit
 from .field import P
 from .mimc import Mimc7
@@ -76,18 +78,21 @@ def prove(circuit: GKRCircuit, w_values: list[list[int]],
         layer = circuit.layers[i]
         k_next = circuit.k(i + 1)
         w_next = w_values[i + 1]
-        struct = backend.mle_struct(w_next, layer_idx=i + 1)
+        with tracing.span("backend.mle_struct"):
+            struct = backend.mle_struct(w_next, layer_idx=i + 1)
 
-        proof_i, r_i = backend.layer_sumcheck(
-            z[i], w_next, layer.add_gates, layer.mult_gates,
-            layer.k_cur, k_next, struct, transcript, layer_idx=i + 1)
+        with tracing.span("backend.layer_sumcheck"):
+            proof_i, r_i = backend.layer_sumcheck(
+                z[i], w_next, layer.add_gates, layer.mult_gates,
+                layer.k_cur, k_next, struct, transcript, layer_idx=i + 1)
         sumcheck_proofs.append(proof_i)
         sumcheck_r.append(r_i)
 
         b_star = r_i[:k_next]
         c_star = r_i[k_next:]
-        q_i = backend.restrict_to_line(w_next, b_star, c_star, struct,
-                                       layer_idx=i + 1)
+        with tracing.span("backend.restrict_to_line"):
+            q_i = backend.restrict_to_line(w_next, b_star, c_star, struct,
+                                           layer_idx=i + 1)
         q.append(q_i)
 
         r_star = transcript.multi_hash(proof_i[-1], 0)
@@ -95,8 +100,10 @@ def prove(circuit: GKRCircuit, w_values: list[list[int]],
         z.append(line(b_star, c_star, r_star))
 
     if materialize_sparse:
-        d_sparse = backend.sparse_from_dense(w_values[0])
-        input_sparse = backend.sparse_from_dense(w_values[depth])
+        with tracing.span("backend.sparse_from_dense"):
+            d_sparse = backend.sparse_from_dense(w_values[0])
+        with tracing.span("backend.sparse_from_dense"):
+            input_sparse = backend.sparse_from_dense(w_values[depth])
     else:
         d_sparse = []
         input_sparse = []

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..field import interpolate
 from ..mimc import Mimc7, fast_transcript
 from ..mle import (MleStruct, SparseMle, line, mle_struct, restrict_to_line,
@@ -206,86 +207,100 @@ def prove_pipelined(circuit, w_values, transcript: Mimc7 | None = None,
     every r*, checks the device z-chain against its own, and raises
     RuntimeError on any divergence.  Every upload is asynchronous
     (`limbs.upload`), so the two downloads are the walk's only syncs; the
-    sparse forms (`materialize_sparse`) come after it."""
+    sparse forms (`materialize_sparse`) come after it.
+
+    The whole walk runs under the `walk` span, pass 1 to its download under
+    `walk.pass1`, pass 2 under `walk.enqueue`, the host's checks after the
+    second download under `walk.check` (`tracing`)."""
     if transcript is None:
         transcript = Mimc7()
     if backend is None:
         backend = TorchBackend()
-    backend.reset_cache()
-    depth = circuit.depth()
-    assert len(w_values) == depth + 1
-    dev = backend.device
+    with tracing.span("walk"):
+        backend.reset_cache()
+        depth = circuit.depth()
+        assert len(w_values) == depth + 1
+        dev = backend.device
 
-    # pass 1: packed tables and their struct scalars, one download
-    packed = [backend.packed(i, w_values[i]) for i in range(1, depth + 1)]
-    scalars = download([x for t in packed
-                        for x in _struct_scalars(_mobius_dev(t))])
-    structs = [_struct(circuit.k(i + 1), *scalars[3 * i:3 * i + 3])
-               for i in range(depth)]
+        # pass 1: packed tables and their struct scalars, one download
+        with tracing.span("walk.pass1"):
+            packed = [backend.packed(i, w_values[i]) for i in range(1, depth + 1)]
+            scalars = download([x for t in packed
+                                for x in _struct_scalars(_mobius_dev(t))])
+            structs = [_struct(circuit.k(i + 1), *scalars[3 * i:3 * i + 3])
+                       for i in range(depth)]
 
-    # pass 2: every layer enqueued, the z-chain on the device
-    k0 = circuit.k(0)
-    z0_host = list(z0) if z0 is not None else [0] * k0
-    z_dev = L.pack(z0_host, dev).reshape(k0, 16)
-    max_deg = max((s.maxdeg for s in structs if not s.empty), default=0)
-    t_rows = L.pack(list(range(max_deg + 1)), dev)
-    per_layer = []
-    for i, (layer, struct) in enumerate(zip(circuit.layers, structs)):
-        k_next = circuit.k(i + 1)
-        wiring = backend.wiring(i + 1, layer.add_gates, layer.mult_gates,
-                                1 << k_next)
-        arrays, finish = prove_layer_sumcheck_fused(
-            None, w_values[i + 1], layer.add_gates, layer.mult_gates,
-            layer.k_cur, k_next, struct, transcript, w_dev=packed[i],
-            wiring=wiring, defer=True, z_dev=z_dev)
-        _co1, co2, b_dev, c_dev = arrays
-        sup = struct.support if not struct.empty else [False] * k_next
-        ln_last = round_poly_len(2 * k_next, 2 * k_next, sup,
-                                 len(layer.add_gates) > 0,
-                                 len(layer.mult_gates) > 0)
-        r_star = _line_challenge(co2[-1], ln_last)
-        diff = L.sub_mod(c_dev, b_dev)
-        z_dev = L.add_mod(b_dev, L.mont_mul(diff, r_star.reshape(1, 16)))
-        # W~ on the line l(t) = b* + (c* - b*) t at t = 0..deg
-        extra = [r_star, z_dev]
-        if not struct.empty:
-            deg = struct.maxdeg
-            pts = L.add_mod(b_dev, L.mont_mul(
-                diff.expand(deg + 1, k_next, 16).contiguous(), t_rows[:deg + 1]))
-            extra.append(_multi_point_fold(packed[i], pts))
-        per_layer.append((arrays, extra, finish))
+        # pass 2: every layer enqueued, the z-chain on the device
+        with tracing.span("walk.enqueue"):
+            k0 = circuit.k(0)
+            z0_host = list(z0) if z0 is not None else [0] * k0
+            z_dev = L.pack(z0_host, dev).reshape(k0, 16)
+            max_deg = max((s.maxdeg for s in structs if not s.empty), default=0)
+            t_rows = L.pack(list(range(max_deg + 1)), dev)
+            per_layer = []
+            for i, (layer, struct) in enumerate(zip(circuit.layers, structs)):
+                k_next = circuit.k(i + 1)
+                wiring = backend.wiring(i + 1, layer.add_gates, layer.mult_gates,
+                                        1 << k_next)
+                arrays, finish = prove_layer_sumcheck_fused(
+                    None, w_values[i + 1], layer.add_gates, layer.mult_gates,
+                    layer.k_cur, k_next, struct, transcript, w_dev=packed[i],
+                    wiring=wiring, defer=True, z_dev=z_dev)
+                _co1, co2, b_dev, c_dev = arrays
+                sup = struct.support if not struct.empty else [False] * k_next
+                ln_last = round_poly_len(2 * k_next, 2 * k_next, sup,
+                                         len(layer.add_gates) > 0,
+                                         len(layer.mult_gates) > 0)
+                r_star = _line_challenge(co2[-1], ln_last)
+                diff = L.sub_mod(c_dev, b_dev)
+                z_dev = L.add_mod(b_dev, L.mont_mul(diff, r_star.reshape(1, 16)))
+                # W~ on the line l(t) = b* + (c* - b*) t at t = 0..deg
+                extra = [r_star, z_dev]
+                if not struct.empty:
+                    deg = struct.maxdeg
+                    pts = L.add_mod(b_dev, L.mont_mul(
+                        diff.expand(deg + 1, k_next, 16).contiguous(),
+                        t_rows[:deg + 1]))
+                    extra.append(_multi_point_fold(packed[i], pts))
+                per_layer.append((arrays, extra, finish))
 
-    # one download for the whole proof, then the host's checks
-    hasher = fast_transcript(transcript)
-    host = iter(download([a for arrays, extra, _ in per_layer
-                          for a in (*arrays, *extra)]))
-    z_chain = [z0_host]
-    sumcheck_proofs, sumcheck_r, q, r_stars = [], [], [], []
-    for i, ((arrays, extra, finish), struct) in enumerate(zip(per_layer, structs)):
-        proof_i, chal_i = finish(tuple(next(host) for _ in arrays))
-        r_dev, z_next_dev = next(host), next(host)
-        k_next = circuit.k(i + 1)
-        r_star = hasher.multi_hash(proof_i[-1], 0)
-        if r_star != L.unpack_scalar(r_dev):
-            raise RuntimeError(f"device/host Fiat-Shamir divergence at layer {i} r*")
-        z_next = line(chal_i[:k_next], chal_i[k_next:], r_star)
-        if L.unpack(z_next_dev) != z_next:
-            raise RuntimeError(f"device/host z-chain divergence after layer {i}")
-        sumcheck_proofs.append(proof_i)
-        sumcheck_r.append(chal_i)
-        r_stars.append(r_star)
-        z_chain.append(z_next)
-        if struct.empty:
-            q.append([0])
+        # one download for the whole proof, then the host's checks
+        host = iter(download([a for arrays, extra, _ in per_layer
+                              for a in (*arrays, *extra)]))
+        with tracing.span("walk.check"):
+            hasher = fast_transcript(transcript)
+            z_chain = [z0_host]
+            sumcheck_proofs, sumcheck_r, q, r_stars = [], [], [], []
+            for i, ((arrays, extra, finish), struct) in enumerate(
+                    zip(per_layer, structs)):
+                proof_i, chal_i = finish(tuple(next(host) for _ in arrays))
+                r_dev, z_next_dev = next(host), next(host)
+                k_next = circuit.k(i + 1)
+                r_star = hasher.multi_hash(proof_i[-1], 0)
+                if r_star != L.unpack_scalar(r_dev):
+                    raise RuntimeError(f"device/host Fiat-Shamir divergence at "
+                                       f"layer {i} r*")
+                z_next = line(chal_i[:k_next], chal_i[k_next:], r_star)
+                if L.unpack(z_next_dev) != z_next:
+                    raise RuntimeError(f"device/host z-chain divergence after "
+                                       f"layer {i}")
+                sumcheck_proofs.append(proof_i)
+                sumcheck_r.append(chal_i)
+                r_stars.append(r_star)
+                z_chain.append(z_next)
+                if struct.empty:
+                    q.append([0])
+                else:
+                    ys = L.unpack(next(host))
+                    q.append(interpolate(list(zip(range(struct.maxdeg + 1), ys))))
+
+        if materialize_sparse:
+            with tracing.span("backend.sparse_from_dense"):
+                d_sparse = backend.sparse_from_dense(w_values[0])
+            with tracing.span("backend.sparse_from_dense"):
+                input_sparse = backend.sparse_from_dense(w_values[depth])
         else:
-            ys = L.unpack(next(host))
-            q.append(interpolate(list(zip(range(struct.maxdeg + 1), ys))))
-
-    if materialize_sparse:
-        d_sparse = backend.sparse_from_dense(w_values[0])
-        input_sparse = backend.sparse_from_dense(w_values[depth])
-    else:
-        d_sparse, input_sparse = [], []
+            d_sparse, input_sparse = [], []
     return Proof(sumcheck_proofs=sumcheck_proofs, sumcheck_r=sumcheck_r,
                  d=d_sparse, q=q, z=z_chain, r=r_stars, depth=depth + 1,
                  input_func=input_sparse, k=circuit.k_list())

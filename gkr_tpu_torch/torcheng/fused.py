@@ -25,7 +25,9 @@ The port's counterpart of the JAX package's default engine,
     divergence.
 
 There is no host synchronisation inside a layer before the download.  Each
-stage runs under a `fused.*` torch.profiler span.
+stage runs under a `fused.*` span (`gkr_tpu_torch.tracing`), which records
+only while tracing is on; the host check under `fused.check`, its re-hash
+under `fused.rehash`, the copy to the host under `fused.download`.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..mimc import Mimc7, fast_transcript
 from ..mle import MleStruct
 from ..sumcheck import round_poly_len, shape_coeffs
@@ -85,7 +87,7 @@ def build_wiring(add_gates, mult_gates, n: int, device="cpu") -> LayerWiring:
     """The host plan of a layer with 2^k = n entries in its next layer.  It
     depends only on the wiring, so a backend computes it once per circuit."""
     plans = []
-    with record_function("fused.wiring_plan"):
+    with tracing.span("fused.wiring_plan"):
         for gates in (add_gates, mult_gates):
             cols = gate_columns(gates) if gates else None
             plans.append([None if cols is None else phase_plan(cols, key, n, device)
@@ -195,24 +197,28 @@ def round_schedule(transcript: Mimc7, w_struct: MleStruct, k: int,
 
 
 def check_transcript(coeffs: torch.Tensor, rs: torch.Tensor, sched,
-                     transcript: Mimc7):
+                     transcript: Mimc7, request: int | None = None):
     """A layer's downloaded (v, 3, 16) coefficients and (v, 16) challenges
     -> (proof, challenges): each round's coefficients cut to its length,
     re-hashed by the host's MiMC7 (the native hash for a plain `Mimc7`,
     `mimc.fast_transcript`); RuntimeError on the first challenge the
-    device got otherwise."""
-    hasher = fast_transcript(transcript)
-    flat = L.unpack(coeffs.reshape(-1, 16))
-    rs_device = L.unpack(rs)
-    proof: list[list[int]] = []
-    challenges: list[int] = []
-    for j in range(1, len(sched) + 1):
-        c = shape_coeffs(flat[3 * (j - 1):3 * j], sched[j - 1])
-        proof.append(c)
-        r = hasher.multi_hash(c, 0)
-        if r != rs_device[j - 1]:
-            raise RuntimeError(f"device/host Fiat-Shamir divergence at round {j}")
-        challenges.append(r)
+    device got otherwise.  Runs under the `fused.check` span of `request`,
+    the re-hash under `fused.rehash`."""
+    with tracing.span("fused.check", request):
+        hasher = fast_transcript(transcript)
+        flat = L.unpack(coeffs.reshape(-1, 16))
+        rs_device = L.unpack(rs)
+        proof: list[list[int]] = []
+        challenges: list[int] = []
+        with tracing.span("fused.rehash"):
+            for j in range(1, len(sched) + 1):
+                c = shape_coeffs(flat[3 * (j - 1):3 * j], sched[j - 1])
+                proof.append(c)
+                r = hasher.multi_hash(c, 0)
+                if r != rs_device[j - 1]:
+                    raise RuntimeError(f"device/host Fiat-Shamir divergence "
+                                       f"at round {j}")
+                challenges.append(r)
     return proof, challenges
 
 
@@ -221,10 +227,14 @@ DOWNLOADS = 0                # calls of `download`: one host sync each
 
 def download(device_arrays):
     """Device arrays of int32 limbs or small integers (bools, counts) to the
-    host in one copy: a tuple of int32 tensors of the same shapes."""
+    host in one copy: a tuple of int32 tensors of the same shapes.  The
+    copy, which waits for the work queued before it, runs under the
+    `fused.download` span."""
     global DOWNLOADS
     DOWNLOADS += 1
-    flat = torch.cat([a.reshape(-1).to(torch.int32) for a in device_arrays]).cpu()
+    with tracing.span("fused.download"):
+        flat = torch.cat([a.reshape(-1).to(torch.int32)
+                          for a in device_arrays]).cpu()
     parts = torch.split(flat, [a.numel() for a in device_arrays])
     return tuple(t.reshape(a.shape) for t, a in zip(parts, device_arrays))
 
@@ -251,39 +261,40 @@ def prove_layer_sumcheck_fused(
     made here when None.  `defer=True` returns (device_arrays, finish)
     without synchronising: `finish(download(device_arrays))` gives
     (proof, challenges) and raises RuntimeError on a Fiat-Shamir
-    divergence."""
+    divergence; its `fused.check` span belongs to this call's request."""
     k = k_next
     v = 2 * k
     assert v >= 2
     sched = round_schedule(transcript, w_struct, k, add_gates, mult_gates)
     n = 1 << k
 
+    rid = tracing.request_id()
     if w_dev is None:
         w_dev = L.pack(w_next, device)
     device = w_dev.device
-    if z_dev is None:
-        z_dev = L.pack(z, device).reshape(-1, 16)
     if wiring is None:
         wiring = build_wiring(add_gates, mult_gates, n, device)
 
-    with record_function("fused.build_phase1"):
+    with tracing.span("fused.build_phase1", rid):
+        if z_dev is None:
+            z_dev = L.pack(z, device).reshape(-1, 16)
         S1, eqz = _build_phase1(w_dev, z_dev, wiring)
-    with record_function("fused.phase1_rounds"):
+    with tracing.span("fused.phase1_rounds", rid):
         S1, co1, rs1 = run_phase(S1, sched[:k])
     wb = S1[0, 0]
-    with record_function("fused.build_phase2"):
+    with tracing.span("fused.build_phase2", rid):
         S2 = _build_phase2(w_dev, rs1, wb, eqz, wiring)
     del eqz
-    with record_function("fused.phase2_rounds"):
+    with tracing.span("fused.phase2_rounds", rid):
         _, co2, rs2 = run_phase(S2, sched[k:], wb)
 
     def finish(host_arrays):
         h1, h2, hr1, hr2 = host_arrays
         return check_transcript(torch.cat([h1, h2]), torch.cat([hr1, hr2]),
-                                sched, transcript)
+                                sched, transcript, rid)
 
     device_arrays = (co1, co2, rs1, rs2)
     if defer:
         return device_arrays, finish
-    with record_function("fused.download_and_check"):
+    with tracing.span("fused.download_and_check", rid):
         return finish(download(device_arrays))

@@ -25,6 +25,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import tracing
 from ..field import N_LIMBS, NPRIME16, P, R, R2
 
 MASK = 0xFFFF
@@ -83,11 +84,16 @@ def pack(values, device="cpu") -> torch.Tensor:
 
     Large tables skip the host-side Montgomery conversion (a Python bigint
     modmul per element) and multiply by R^2 on the device instead:
-    v * R2 / R = v * R mod p, bit-identical."""
+    v * R2 / R = v * R mod p, bit-identical.  The host's conversion of the
+    ints runs under the `limbs.to_limbs` span."""
     if len(values) >= PACK_DEVICE_MIN:
-        raw = upload(canonical_limbs(values), device)
+        with tracing.span("limbs.to_limbs"):
+            host = canonical_limbs(values)
+        raw = upload(host, device)
         return mont_mul(raw, const("R2_LIMBS", raw.device))
-    return upload(canonical_limbs([int(v) % P * R % P for v in values]), device)
+    with tracing.span("limbs.to_limbs"):
+        host = canonical_limbs([int(v) % P * R % P for v in values])
+    return upload(host, device)
 
 
 def pack_scalar(v: int, device="cpu") -> torch.Tensor:
@@ -96,16 +102,18 @@ def pack_scalar(v: int, device="cpu") -> torch.Tensor:
 
 def unpack(t: torch.Tensor, montgomery: bool = True) -> list[int]:
     """(..., 16) limbs -> list of canonical Python ints (leading axes
-    flattened row-major)."""
+    flattened row-major).  The host's conversion, after the copy to the
+    host, runs under the `limbs.from_limbs` span."""
     a = t.detach().reshape(-1, N_LIMBS).to("cpu", torch.int32).numpy()
-    raw = a.astype(np.uint16).tobytes()
-    rinv = pow(R, P - 2, P)
-    out = []
-    for i in range(a.shape[0]):
-        v = int.from_bytes(raw[32 * i:32 * i + 32], "little")
-        if montgomery:
-            v = v * rinv % P
-        out.append(v % P)
+    with tracing.span("limbs.from_limbs"):
+        raw = a.astype(np.uint16).tobytes()
+        rinv = pow(R, P - 2, P)
+        out = []
+        for i in range(a.shape[0]):
+            v = int.from_bytes(raw[32 * i:32 * i + 32], "little")
+            if montgomery:
+                v = v * rinv % P
+            out.append(v % P)
     return out
 
 

@@ -16,8 +16,8 @@ the device as Montgomery limb tensors:
   * below `tail_threshold` entries the tables come down and the rounds
     finish on the exact host engine.
 
-Each stage runs under a `sumcheck.*` torch.profiler span, which records
-only while a profiler runs.
+Each stage runs under a `sumcheck.*` span (`gkr_tpu_torch.tracing`), which
+records only while tracing is on.
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ import itertools
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import tracing
 from ..mimc import Mimc7
 from ..mle import MleStruct
 from ..sumcheck import make_emitter, phase1_host_rounds, phase2_host_rounds
@@ -107,10 +107,10 @@ def prove_layer_sumcheck_torch(
     if w_dev is None:
         w_dev = L.pack(w_next, device)
     device = w_dev.device
-    with record_function("sumcheck.gate_arrays"):
+    with tracing.span("sumcheck.gate_arrays"):
         ga = gate_arrays(add_gates, device)
         gm = gate_arrays(mult_gates, device)
-    with record_function("sumcheck.build_phase1"):
+    with tracing.span("sumcheck.build_phase1"):
         eqz = K.eq_table(L.pack(z, device).reshape(-1, 16))
         ha1, ha2 = _build_phase1_tables(eqz, w_dev, ga, n)
         _, hm = _build_phase1_tables(eqz, w_dev, gm, n)
@@ -128,13 +128,13 @@ def prove_layer_sumcheck_torch(
     S1 = torch.stack([w_dev, ha1, ha2, hm], dim=1)       # (n, 4, 16)
     del ha1, ha2, hm
     j = 1
-    with record_function("sumcheck.phase1_rounds"):
+    with tracing.span("sumcheck.phase1_rounds"):
         while j <= k and (n >> (j - 1)) > tail_threshold:
             emit_dev(K.phase1_eval(S1), j)
             S1 = K.fold(S1, L.pack_scalar(challenges[-1], device))
             j += 1
     if j <= k:
-        with record_function("sumcheck.phase1_host_tail"):
+        with tracing.span("sumcheck.phase1_host_tail"):
             W, HA1, HA2, HM = _unstack_to_host(S1)
             W, *_ = phase1_host_rounds(W, HA1, HA2, HM, j, k, emit_host,
                                        challenges)
@@ -148,7 +148,7 @@ def prove_layer_sumcheck_torch(
     b_star = challenges[:k]
 
     # ---- phase 2 ----
-    with record_function("sumcheck.build_phase2"):
+    with tracing.span("sumcheck.build_phase2"):
         eqb = K.eq_table(L.pack(b_star, device))
         fa = _build_phase2_table(eqz, eqb, ga, n)
         fmwb = L.mul_scalar(_build_phase2_table(eqz, eqb, gm, n), wb)
@@ -156,13 +156,13 @@ def prove_layer_sumcheck_torch(
     S2 = torch.stack([w_dev, fa, fmwb], dim=1)           # (n, 3, 16)
     del fa, fmwb
     j = k + 1
-    with record_function("sumcheck.phase2_rounds"):
+    with tracing.span("sumcheck.phase2_rounds"):
         while j <= v and (n >> (j - k - 1)) > tail_threshold:
             emit_dev(K.phase2_eval(S2, wb), j)
             S2 = K.fold(S2, L.pack_scalar(challenges[-1], device))
             j += 1
     if j <= v:
-        with record_function("sumcheck.phase2_host_tail"):
+        with tracing.span("sumcheck.phase2_host_tail"):
             Wc, FA, FMwb = _unstack_to_host(S2)
             phase2_host_rounds(Wc, FA, FMwb, wb_int, j, v, emit_host,
                                challenges)
