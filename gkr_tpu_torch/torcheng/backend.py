@@ -210,7 +210,9 @@ def prove_pipelined(circuit, w_values, transcript: Mimc7 | None = None,
     sparse forms (`materialize_sparse`) come after it.
 
     The whole walk runs under the `walk` span, pass 1 to its download under
-    `walk.pass1`, pass 2 under `walk.enqueue`, the host's checks after the
+    `walk.pass1` (each layer's Moebius transform and struct scalars under
+    `walk.mobius`), pass 2 under `walk.enqueue` (each layer's r*, z-chain
+    step and line points under `walk.line`), the host's checks after the
     second download under `walk.check` (`tracing`)."""
     if transcript is None:
         transcript = Mimc7()
@@ -225,8 +227,11 @@ def prove_pipelined(circuit, w_values, transcript: Mimc7 | None = None,
         # pass 1: packed tables and their struct scalars, one download
         with tracing.span("walk.pass1"):
             packed = [backend.packed(i, w_values[i]) for i in range(1, depth + 1)]
-            scalars = download([x for t in packed
-                                for x in _struct_scalars(_mobius_dev(t))])
+            reduced = []
+            for t in packed:
+                with tracing.span("walk.mobius"):
+                    reduced += _struct_scalars(_mobius_dev(t))
+            scalars = download(reduced)
             structs = [_struct(circuit.k(i + 1), *scalars[3 * i:3 * i + 3])
                        for i in range(depth)]
 
@@ -251,17 +256,18 @@ def prove_pipelined(circuit, w_values, transcript: Mimc7 | None = None,
                 ln_last = round_poly_len(2 * k_next, 2 * k_next, sup,
                                          len(layer.add_gates) > 0,
                                          len(layer.mult_gates) > 0)
-                r_star = _line_challenge(co2[-1], ln_last)
-                diff = L.sub_mod(c_dev, b_dev)
-                z_dev = L.add_mod(b_dev, L.mont_mul(diff, r_star.reshape(1, 16)))
-                # W~ on the line l(t) = b* + (c* - b*) t at t = 0..deg
-                extra = [r_star, z_dev]
-                if not struct.empty:
-                    deg = struct.maxdeg
-                    pts = L.add_mod(b_dev, L.mont_mul(
-                        diff.expand(deg + 1, k_next, 16).contiguous(),
-                        t_rows[:deg + 1]))
-                    extra.append(_multi_point_fold(packed[i], pts))
+                with tracing.span("walk.line"):
+                    r_star = _line_challenge(co2[-1], ln_last)
+                    diff = L.sub_mod(c_dev, b_dev)
+                    z_dev = L.add_mod(b_dev, L.mont_mul(diff, r_star.reshape(1, 16)))
+                    # W~ on the line l(t) = b* + (c* - b*) t at t = 0..deg
+                    extra = [r_star, z_dev]
+                    if not struct.empty:
+                        deg = struct.maxdeg
+                        pts = L.add_mod(b_dev, L.mont_mul(
+                            diff.expand(deg + 1, k_next, 16).contiguous(),
+                            t_rows[:deg + 1]))
+                        extra.append(_multi_point_fold(packed[i], pts))
                 per_layer.append((arrays, extra, finish))
 
         # one download for the whole proof, then the host's checks

@@ -102,6 +102,25 @@ def test_walk_nesting_requests_and_the_same_proof(small):
     assert tot["walk.check"].seconds <= tot["walk"].seconds
 
 
+def test_walk_times_each_layers_mobius_and_line(small):
+    """One `walk.mobius` under pass 1 and one `walk.line` under pass 2 a
+    layer, inside the walk; nothing with tracing off."""
+    circuit, w, backend, want = small
+    assert prove_pipelined(circuit, w, backend=backend) == want
+    assert tracing.events() == []
+    tracing.enable()
+    got = prove_pipelined(circuit, w, backend=backend)
+    tracing.disable()
+    assert got == want
+    evs = tracing.events()
+    depth = circuit.depth()
+    for name, stage in (("walk.mobius", "walk.pass1"), ("walk.line", "walk.enqueue")):
+        mine = [e for e in evs if e.name == name]
+        assert len(mine) == depth, name
+        assert all(evs[e.parent].name == stage for e in mine), name
+        assert tracing.totals(within="walk")[name].calls == depth
+
+
 def _claims(count):
     """`count` claims on one small layer dispatched with defer=True: ->
     their (arrays, finish) pairs."""
